@@ -1,0 +1,52 @@
+"""Carry the reference package's state, given as numpy arrays, into the port.
+
+The tracking step learns nothing, so its state is the rig calibration, the
+local map and a frame's features. Each function takes the arrays the JAX
+package holds (`np.asarray` of its fields) and returns the port's objects on
+`device`.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from multicol_slam_tpu_torch.models.camera import OmniCamera
+from multicol_slam_tpu_torch.models.rig import MultiCamRig
+from multicol_slam_tpu_torch.slam.features import FrameFeatures
+from multicol_slam_tpu_torch.slam.tracking_kernels import LocalPoints
+
+
+def _t(a, dtype, device):
+    return torch.tensor(np.asarray(a, dtype), device=device)
+
+
+def rig_from_numpy(pol, invpol, cde, pp, wh, mc_cayley, device=None) -> MultiCamRig:
+    """OmniCamera fields [C, MAX_POL], [C, MAX_INVPOL], [C, 3], [C, 2], [C, 2]
+    and extrinsics [C, 6] -> MultiCamRig."""
+    f32 = np.float32
+    cams = OmniCamera(_t(pol, f32, device), _t(invpol, f32, device), _t(cde, f32, device),
+                      _t(pp, f32, device), _t(wh, f32, device))
+    return MultiCamRig.from_cayley(cams, _t(mc_cayley, f32, device))
+
+
+def local_points_from_numpy(X, desc, min_dist, max_dist, valid, normal=None, dmask=None,
+                            device=None) -> LocalPoints:
+    f32 = np.float32
+    return LocalPoints(
+        X=_t(X, f32, device), desc=_t(desc, np.uint8, device),
+        min_dist=_t(min_dist, f32, device), max_dist=_t(max_dist, f32, device),
+        valid=_t(valid, bool, device),
+        normal=None if normal is None else _t(normal, f32, device),
+        dmask=None if dmask is None else _t(dmask, np.uint8, device),
+    )
+
+
+def frame_features_from_numpy(uv, response, octave, angle, rays, desc, dmask, valid,
+                              device=None) -> FrameFeatures:
+    f32 = np.float32
+    return FrameFeatures(
+        uv=_t(uv, f32, device), response=_t(response, f32, device),
+        octave=_t(octave, np.int32, device), angle=_t(angle, f32, device),
+        rays=_t(rays, f32, device), desc=_t(desc, np.uint8, device),
+        dmask=_t(dmask, np.uint8, device), valid=_t(valid, bool, device),
+    )

@@ -1,0 +1,212 @@
+"""Fused masked-Hamming best match over a rig of cameras: the CUDA kernel
+`csrc/best_match.cu` and its plain PyTorch version.
+
+Counterpart of `multicol_slam_tpu/ops/pallas_match.py`: the TPU kernel
+`masked_best_match_pallas_cams` (`pallas_call` at :361, bodies `kernel` and
+`kernel_masked`, :305-340), which the tracking stages call once per stage.
+Per camera c and query q, over the targets t allowed by the window
+|uv_q - uv_t| <= min(rad_q, rad_t) (a negative radius disables) and the
+level band |oct_q - lvl_t| <= level_tol, it returns
+
+    best [C, Q] f32     smallest distance, BIG = 1e9 when nothing is allowed
+    second [C, Q] f32   smallest distance over every column but the argmin
+    idx [C, Q] i32      first argmin, -1 when nothing is allowed
+    col_best [C, T] f32 smallest distance over the queries of each target
+
+with the distance popc(a ^ b), or (popc(x & m_q) + popc(x & m_t)) / 2 when
+mdBRIEF masks are given (callers then halve their thresholds).
+
+On this card the kernel reads 32 B per target per query tile and does 8
+popcounts per pair; at the tracking shape (C=3, Q=400, T=4096) that is
+4.9 M pairs a stage on 12 blocks of 132 SMs, so it is latency-bound: each
+warp walks every target in sequence. The design keeps every query's state
+in registers and stages target tiles in shared memory; splitting T across
+blocks is what would fill the card.
+
+`masked_best_match_cams` runs the plain version for CPU tensors only. For
+CUDA tensors it launches the kernel or raises. The kernel is built with
+nvcc for sm_90a at first use, into `multicol_slam_tpu_torch/build/`.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from multicol_slam_tpu_torch.ops.matching import hamming_matrix, hamming_matrix_masked
+
+BIG = 1e9
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "best_match.cu"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and Path(root, "bin", "nvcc").is_file():
+            return str(Path(root, "bin", "nvcc"))
+    raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+
+
+class BestMatchKernel:
+    """The built library and its launch count. `launches` goes up by one
+    each time `masked_best_match_cams` launches the kernel, and nowhere else."""
+
+    def __init__(self):
+        self.launches = 0
+        self.build_log = ""
+        self._fn = None
+
+    def build(self) -> Path:
+        """Compile the source (once per content) and return the library path."""
+        src = SOURCE.read_bytes()
+        tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        lib = BUILD_DIR / f"libbest_match_{tag}.so"
+        if lib.is_file():
+            return lib
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            proc = subprocess.run([_find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+                                  capture_output=True, text=True)
+            self.build_log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{self.build_log}")
+            os.replace(tmp, lib)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        return lib
+
+    def function(self):
+        if self._fn is None:
+            fn = ctypes.CDLL(str(self.build())).mcslam_best_match
+            p, i = ctypes.c_void_p, ctypes.c_int
+            fn.argtypes = [p] * 7 + [i] + [p] * 3 + [i] * 4 + [ctypes.c_float] + [p] * 5
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+
+KERNEL = BestMatchKernel()
+
+
+def masked_best_match_cams_plain(
+    desc_q: torch.Tensor,
+    uv_q: torch.Tensor,
+    oct_q: torch.Tensor,
+    desc_t: torch.Tensor,
+    uv_t: torch.Tensor,
+    rad_t: torch.Tensor,
+    lvl_t: torch.Tensor,
+    rad_q: Optional[torch.Tensor] = None,
+    mask_q: Optional[torch.Tensor] = None,
+    mask_t: Optional[torch.Tensor] = None,
+    level_tol: float = 1.0,
+) -> Outputs:
+    """Plain version of the kernel: the dense [C, Q, T] masked distance, then
+    row and column reductions. Same arguments and outputs as
+    `masked_best_match_cams`."""
+    if mask_q is not None and mask_t is not None:
+        ham = hamming_matrix_masked(desc_q, mask_q, desc_t, mask_t)
+    else:
+        ham = hamming_matrix(desc_q, desc_t)
+    if rad_q is None:
+        rad_q = torch.full(desc_q.shape[:2], BIG, dtype=torch.float32, device=desc_q.device)
+    rad = torch.minimum(rad_q[..., :, None], rad_t[..., None, :])
+    du = torch.abs(uv_q[..., :, None, 0] - uv_t[..., None, :, 0])
+    dv = torch.abs(uv_q[..., :, None, 1] - uv_t[..., None, :, 1])
+    dl = torch.abs(oct_q.to(torch.float32)[..., :, None] - lvl_t.to(torch.float32)[..., None, :])
+    mask = (du <= rad) & (dv <= rad) & (dl <= level_tol)
+    d = torch.where(mask, ham, torch.full_like(ham, BIG))
+    idx = torch.argmin(d, dim=-1, keepdim=True)                 # first minimum
+    best = torch.gather(d, -1, idx)[..., 0]
+    second = torch.scatter(d, -1, idx, BIG).amin(dim=-1)
+    idx = torch.where(best < BIG, idx[..., 0], -1).to(torch.int32)
+    return best, second, idx, d.amin(dim=-2)
+
+
+def _check(name, t, dtype, shape):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous {dtype} {tuple(shape)}, "
+                         f"got {t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}")
+
+
+def masked_best_match_cams(
+    desc_q: torch.Tensor,    # [C, Q, B] uint8
+    uv_q: torch.Tensor,      # [C, Q, 2] f32
+    oct_q: torch.Tensor,     # [C, Q] f32 or i32
+    desc_t: torch.Tensor,    # [C, T, B] uint8, or [T, B] shared by all cameras
+    uv_t: torch.Tensor,      # [C, T, 2] f32
+    rad_t: torch.Tensor,     # [C, T] f32 (<0 disables)
+    lvl_t: torch.Tensor,     # [C, T] f32
+    rad_q: Optional[torch.Tensor] = None,   # [C, Q] f32 (None -> unlimited)
+    mask_q: Optional[torch.Tensor] = None,  # [C, Q, B] uint8 mdBRIEF masks
+    mask_t: Optional[torch.Tensor] = None,  # like desc_t
+    level_tol: float = 1.0,
+) -> Outputs:
+    """(best, second, idx, col_best) of the masked Hamming matrix per camera;
+    see the module docstring."""
+    if desc_q.device.type == "cpu":
+        return masked_best_match_cams_plain(desc_q, uv_q, oct_q, desc_t, uv_t, rad_t, lvl_t,
+                                            rad_q, mask_q, mask_t, level_tol)
+    if not desc_q.is_cuda:
+        raise ValueError(f"masked_best_match_cams: no kernel for device {desc_q.device}")
+    dev = desc_q.device
+    C, Q, B = desc_q.shape
+    T = desc_t.shape[-2]
+    if B not in (16, 32, 64):
+        raise ValueError(f"descriptor bytes must be 16, 32 or 64, got {B}")
+    shared = desc_t.dim() == 2
+    t_shape = (T, B) if shared else (C, T, B)
+    masked = mask_q is not None and mask_t is not None
+    if rad_q is None:
+        rad_q = torch.full((C, Q), BIG, dtype=torch.float32, device=dev)
+    oct_q = oct_q.to(torch.float32)
+    lvl_t = lvl_t.to(torch.float32)
+    checks = [("desc_q", desc_q, torch.uint8, (C, Q, B)), ("uv_q", uv_q, torch.float32, (C, Q, 2)),
+              ("oct_q", oct_q, torch.float32, (C, Q)), ("rad_q", rad_q, torch.float32, (C, Q)),
+              ("desc_t", desc_t, torch.uint8, t_shape), ("uv_t", uv_t, torch.float32, (C, T, 2)),
+              ("rad_t", rad_t, torch.float32, (C, T)), ("lvl_t", lvl_t, torch.float32, (C, T))]
+    if masked:
+        if (mask_t.dim() == 2) != shared:
+            raise ValueError("mask_t must be shared across cameras exactly when desc_t is")
+        checks += [("mask_q", mask_q, torch.uint8, (C, Q, B)), ("mask_t", mask_t, torch.uint8, t_shape)]
+    for name, t, dtype, shape in checks:
+        _check(name, t, dtype, shape)
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, desc_q on {dev}")
+        if t.data_ptr() % 4:
+            raise ValueError(f"{name} is not 4-byte aligned")
+    best = torch.empty((C, Q), dtype=torch.float32, device=dev)
+    second = torch.empty((C, Q), dtype=torch.float32, device=dev)
+    idx = torch.empty((C, Q), dtype=torch.int32, device=dev)
+    col_best = torch.empty((C, T), dtype=torch.float32, device=dev)
+    fn = KERNEL.function()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(desc_q.data_ptr(), mask_q.data_ptr() if masked else None,
+                 uv_q.data_ptr(), oct_q.data_ptr(), rad_q.data_ptr(),
+                 desc_t.data_ptr(), mask_t.data_ptr() if masked else None, int(shared),
+                 uv_t.data_ptr(), rad_t.data_ptr(), lvl_t.data_ptr(),
+                 C, Q, T, B, float(level_tol),
+                 best.data_ptr(), second.data_ptr(), idx.data_ptr(), col_best.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"best_match kernel launch failed: cudaError_t {err}")
+    KERNEL.launches += 1
+    return best, second, idx, col_best

@@ -1,0 +1,104 @@
+"""Steered-BRIEF (ORB) descriptors and intensity-centroid angles (port of the
+ORB path of `multicol_slam_tpu/ops/brief.py`; dBRIEF/mdBRIEF wait).
+
+One [P, P] patch per keypoint (P = 2 * SAMPLE_RADIUS + 1) is gathered once
+and feeds both the IC-angle moments and the descriptor tests. Each sample
+is a direct gather from that patch (the reference's one-hot contraction is
+a TPU device for the same values).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from multicol_slam_tpu_torch.ops.image import gather_patches
+
+HALF_PATCH = 15          # IC-angle patch radius
+PATCH_SIZE = 31
+PATTERN_SEED = 20160823  # the reference's pattern seed: descriptors stay bit-compatible
+SAMPLE_RADIUS = 23
+
+
+@functools.lru_cache(maxsize=None)
+def brief_pattern(n_bits: int = 512) -> np.ndarray:
+    """[n_bits, 2] int32 test locations in [-13, 13] (Gaussian, sigma =
+    PATCH_SIZE / 5); consecutive entries form the pair of one bit."""
+    rng = np.random.default_rng(PATTERN_SEED)
+    sigma = PATCH_SIZE / 5.0
+    pts = np.clip(np.round(rng.normal(0.0, sigma, size=(n_bits, 2))), -(HALF_PATCH - 2), HALF_PATCH - 2)
+    return pts.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _ic_angle_weights() -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(wx, wy, mask) over a 31x31 window, radius-15 circle."""
+    d = np.arange(-HALF_PATCH, HALF_PATCH + 1)
+    xx, yy = np.meshgrid(d, d)
+    mask = (xx ** 2 + yy ** 2) <= HALF_PATCH ** 2
+    return (xx * mask).astype(np.float32), (yy * mask).astype(np.float32), mask
+
+
+def gather_sample_patches(img: torch.Tensor, centers: torch.Tensor):
+    """Sample patches [..., K, P, P] and their origins (r0, c0) [..., K].
+    img [..., H, W]; centers [..., K, 2] int (u, v)."""
+    H, W = img.shape[-2:]
+    R = SAMPLE_RADIUS
+    P = 2 * R + 1
+    patches = gather_patches(img, centers, R)
+    r0 = torch.clamp(centers[..., 1] - R, 0, max(H - P, 0))
+    c0 = torch.clamp(centers[..., 0] - R, 0, max(W - P, 0))
+    return patches, r0, c0
+
+
+def ic_angles_from_patches(patches, centers, r0, c0, wx: torch.Tensor, wy: torch.Tensor) -> torch.Tensor:
+    """atan2(m01, m10) over the 31x31 window around each keypoint inside its
+    sample patch (window clamped to the patch). wx, wy: `_ic_angle_weights`."""
+    P = patches.shape[-1]
+    Q = 2 * HALF_PATCH + 1
+    oy = torch.clamp(centers[..., 1] - r0 - HALF_PATCH, 0, P - Q)
+    ox = torch.clamp(centers[..., 0] - c0 - HALF_PATCH, 0, P - Q)
+    win = gather_patches(patches, torch.stack([ox, oy], -1)[..., None, :] + HALF_PATCH, HALF_PATCH)
+    win = win[..., 0, :, :]                                       # [..., K, Q, Q]
+    m10 = torch.einsum("...ij,ij->...", win, wx)
+    m01 = torch.einsum("...ij,ij->...", win, wy)
+    return torch.atan2(m01, m10)
+
+
+def _sample_patches(patches, centers, offsets, r0, c0) -> torch.Tensor:
+    """Values at centers[k] + offsets[k, s] inside the pre-gathered patches
+    (clamped to the patch). offsets [..., K, S, 2] -> [..., K, S]."""
+    P = patches.shape[-1]
+    rows = torch.clamp(centers[..., None, 1] + offsets[..., 1] - r0[..., None], 0, P - 1)
+    cols = torch.clamp(centers[..., None, 0] + offsets[..., 0] - c0[..., None], 0, P - 1)
+    flat = patches.reshape(*patches.shape[:-2], P * P)
+    return torch.gather(flat, -1, (rows * P + cols).long())
+
+
+def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """[..., 8B] bool -> [..., B] uint8, LSB first in each byte."""
+    nb = bits.shape[-1]
+    w = 1 << torch.arange(8, dtype=torch.int32, device=bits.device)
+    packed = (bits.reshape(*bits.shape[:-1], nb // 8, 8).to(torch.int32) * w).sum(-1)
+    return packed.to(torch.uint8)
+
+
+def _rotated_offsets(pattern: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Rotate integer pattern [S, 2] by angles [..., K] -> [..., K, S, 2]
+    int32, rounded half to even: (x ca - y sa, x sa + y ca)."""
+    ca, sa = torch.cos(angles)[..., None], torch.sin(angles)[..., None]
+    x, y = pattern[:, 0].to(torch.float32), pattern[:, 1].to(torch.float32)
+    xr = x * ca - y * sa
+    yr = x * sa + y * ca
+    return torch.stack([torch.round(xr), torch.round(yr)], dim=-1).to(torch.int32)
+
+
+def compute_orb_from_patches(patches, centers, r0, c0, angles, pattern: torch.Tensor) -> torch.Tensor:
+    """ORB descriptors [..., K, B] uint8; bit i is t0 < t1 of pair i of the
+    rotated `pattern` ([16 B, 2] int32, `brief_pattern(16 B)`)."""
+    offs = _rotated_offsets(pattern, angles)
+    vals = _sample_patches(patches, centers, offs, r0, c0)
+    bits = vals[..., 0::2] < vals[..., 1::2]
+    return _pack_bits(bits)

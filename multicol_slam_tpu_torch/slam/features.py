@@ -1,0 +1,125 @@
+"""Per-frame multi-camera feature extraction (port of the ORB path of
+`multicol_slam_tpu/slam/features.py`).
+
+All cameras go through each step together, the camera axis being a tensor
+dimension: pyramid, box blur, dense FAST with 3x3 NMS, grid top-K, IC angles,
+ORB descriptors, unit rays. The output is a fixed-capacity `FrameFeatures`,
+K = n_features slots per camera with a validity mask.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from multicol_slam_tpu_torch.models.camera import OmniCamera, img_to_world, mirror_mask_grid
+from multicol_slam_tpu_torch.ops import brief as brief_ops
+from multicol_slam_tpu_torch.ops import fast as fast_ops
+from multicol_slam_tpu_torch.ops import image as image_ops
+from multicol_slam_tpu_torch.utils.config import ExtractorSettings
+
+EDGE_BORDER = 19  # detection border (keypoint patch safety)
+
+
+@dataclasses.dataclass
+class FrameFeatures:
+    """All features of one multi-camera frame, padded to [C, K].
+
+    uv [C, K, 2] f32 level-0 pixels; response [C, K] f32; octave [C, K] i32;
+    angle [C, K] f32 radians; rays [C, K, 3] f32 unit rays; desc [C, K, B] u8;
+    dmask [C, K, B] u8 (0xFF on the ORB path); valid [C, K] bool.
+    """
+
+    uv: torch.Tensor
+    response: torch.Tensor
+    octave: torch.Tensor
+    angle: torch.Tensor
+    rays: torch.Tensor
+    desc: torch.Tensor
+    dmask: torch.Tensor
+    valid: torch.Tensor
+
+
+class ExtractorTables(nn.Module):
+    """Constant tables of the extractor for one image size, as buffers: the
+    BRIEF pattern, the IC-angle weights and the pyramid's resize matrices."""
+
+    def __init__(self, settings: ExtractorSettings, height: int, width: int, device=None):
+        super().__init__()
+        if settings.use_mdbrief:
+            raise NotImplementedError("the dBRIEF/mdBRIEF extraction path is not ported yet")
+        self.settings = settings
+        self.height, self.width = height, width
+        self.register_buffer("pattern", torch.from_numpy(
+            brief_ops.brief_pattern(2 * 8 * settings.desc_size)).to(device))
+        wx, wy, _ = brief_ops._ic_angle_weights()
+        self.register_buffer("ic_wx", torch.from_numpy(wx).to(device))
+        self.register_buffer("ic_wy", torch.from_numpy(wy).to(device))
+        weights = image_ops.pyramid_weights(height, width, settings.n_levels, settings.scale_factor)
+        for lvl, (wr, wc) in enumerate(weights, start=1):
+            self.register_buffer(f"resize_rows_{lvl}", torch.from_numpy(wr).to(device))
+            self.register_buffer(f"resize_cols_{lvl}", torch.from_numpy(wc).to(device))
+
+    def resize_weights(self):
+        return [
+            (getattr(self, f"resize_rows_{lvl}"), getattr(self, f"resize_cols_{lvl}"))
+            for lvl in range(1, self.settings.n_levels)
+        ]
+
+
+def _extract_level(level_img, blurred, cams: OmniCamera, settings: ExtractorSettings,
+                   tables: ExtractorTables, level: int, quota: int, fast_th: float):
+    """Detect on the raw level, describe on the blurred one, for all cameras.
+    Returns per-level (uv0, resp, octave, angle, desc, dmask, ok) of [C, quota, ...]."""
+    C, h, w = level_img.shape
+    pattern = settings.fast_agast_type if settings.use_agast else 2
+    is_corner, score = fast_ops.fast_corners(level_img, fast_th, pattern=pattern)
+    score = torch.where(is_corner, score, -float("inf"))
+    nms = score >= image_ops.max_pool_3x3(score)
+    bmask = fast_ops.border_mask(h, w, EDGE_BORDER, device=score.device)[None]
+    mmask = mirror_mask_grid(cams, h, w, scale=settings.scale_factor ** (-level))
+    valid = nms & bmask & mmask & torch.isfinite(score)
+    uv_l, resp, ok = fast_ops.select_topk_grid(score, valid, quota)
+    patches, r0, c0 = brief_ops.gather_sample_patches(blurred, uv_l)
+    ang = brief_ops.ic_angles_from_patches(patches, uv_l, r0, c0, tables.ic_wx, tables.ic_wy)
+    desc = brief_ops.compute_orb_from_patches(patches, uv_l, r0, c0, ang, tables.pattern)
+    dmask = torch.full_like(desc, 255)
+    uv0 = uv_l.to(torch.float32) * (settings.scale_factor ** level)
+    octave = torch.full(resp.shape, level, dtype=torch.int32, device=resp.device)
+    return uv0, resp, octave, ang, desc, dmask, ok
+
+
+def extract_features(
+    images: torch.Tensor,
+    cams: OmniCamera,
+    settings: ExtractorSettings,
+    tables: Optional[ExtractorTables] = None,
+    n_features: Optional[int] = None,
+    fast_th: Optional[float] = None,
+) -> FrameFeatures:
+    """Full multi-camera extraction. images [C, H, W] uint8 or float in
+    [0, 255], on the device that does the work. `tables` are built here
+    when not given (pass them to skip the rebuild on every frame)."""
+    n_feats = int(n_features or settings.n_features)
+    th = float(fast_th if fast_th is not None else settings.fast_th)
+    images = images.to(torch.float32)
+    C, H, W = images.shape
+    if tables is None:
+        tables = ExtractorTables(settings, H, W, device=images.device)
+    elif (tables.height, tables.width) != (H, W) or tables.settings != settings:
+        raise ValueError(f"tables were built for {tables.height}x{tables.width} and "
+                         f"{tables.settings}, not {H}x{W} and {settings}")
+    pyr = image_ops.build_pyramid(images, settings.n_levels, settings.scale_factor,
+                                  tables.resize_weights())
+    quotas = fast_ops.level_quota(n_feats, settings.n_levels, settings.scale_factor)
+    outs = []
+    for lvl, img_l in enumerate(pyr):
+        blurred = image_ops.box_filter(img_l, 5)
+        outs.append(_extract_level(img_l, blurred, cams, settings, tables, lvl,
+                                   int(quotas[lvl]), th))
+    uv, resp, octave, ang, desc, dmask, ok = (torch.cat(parts, dim=1) for parts in zip(*outs))
+    cam_ids = torch.arange(C, device=images.device)[:, None]
+    rays = img_to_world(cams.pol[cam_ids], cams.cde[cam_ids], cams.pp[cam_ids], uv)
+    return FrameFeatures(uv, resp, octave, ang, rays, desc, dmask, ok)

@@ -1,0 +1,86 @@
+"""The CUDA best-match kernel against its plain PyTorch version, on the card.
+
+Imports no JAX, so it also runs on a machine without it:
+
+    python -m pytest tests/test_torch_best_match_cuda.py -q --noconftest
+
+(`--noconftest`: tests/conftest.py configures JAX). Every case skips where
+there is no CUDA device. All four outputs must be exactly equal."""
+import numpy as np
+import pytest
+import torch
+
+from multicol_slam_tpu_torch.ops.best_match import (
+    KERNEL, masked_best_match_cams, masked_best_match_cams_plain,
+)
+
+# (C, Q, T, desc bytes, shared desc_t, masked, ties, share of enabled targets)
+CASES = {
+    "slice_shared": (3, 400, 4096, 32, True, False, False, 0.8),
+    "slice_per_camera_masked": (3, 400, 4096, 32, False, True, False, 0.8),
+    "ragged": (3, 37, 1001, 32, True, False, False, 0.8),
+    "ragged_masked": (2, 129, 130, 32, False, True, False, 0.8),
+    "one_camera": (1, 64, 700, 32, False, False, False, 0.8),
+    "ties": (3, 200, 900, 32, True, True, True, 0.8),
+    "all_disabled": (3, 16, 256, 32, True, False, False, 0.0),
+    "16_bytes": (2, 40, 300, 16, True, True, False, 0.8),
+    "64_bytes": (2, 40, 300, 64, False, False, False, 0.8),
+}
+
+
+def _problem(seed, C, Q, T, B, shared, masked, ties, frac_t):
+    rng = np.random.default_rng(seed)
+    t_rows = (T,) if shared else (C, T)
+    if ties:  # four distinct descriptors on a coarse pixel grid: many equal distances
+        pool = rng.integers(0, 256, (4, B), dtype=np.uint8)
+        dq, dt = pool[rng.integers(0, 4, (C, Q))], pool[rng.integers(0, 4, t_rows)]
+    else:
+        dq = rng.integers(0, 256, (C, Q, B), dtype=np.uint8)
+        dt = rng.integers(0, 256, t_rows + (B,), dtype=np.uint8)
+    uvq = rng.uniform(0, 300, (C, Q, 2)).astype(np.float32)
+    uvt = rng.uniform(0, 300, (C, T, 2)).astype(np.float32)
+    if ties:
+        uvq, uvt = np.round(uvq / 16) * 16, np.round(uvt / 16) * 16
+    p = dict(
+        desc_q=dq, uv_q=uvq, oct_q=rng.integers(0, 4, (C, Q)).astype(np.int32),
+        desc_t=dt, uv_t=uvt,
+        rad_t=np.where(rng.uniform(size=(C, T)) < frac_t, rng.uniform(10, 80, (C, T)), -1.0).astype(np.float32),
+        lvl_t=rng.integers(0, 4, (C, T)).astype(np.float32),
+        rad_q=np.where(rng.uniform(size=(C, Q)) < 0.9, 1e9, -1.0).astype(np.float32),
+    )
+    if masked:
+        p["mask_q"] = rng.integers(0, 256, dq.shape, dtype=np.uint8)
+        p["mask_t"] = rng.integers(0, 256, dt.shape, dtype=np.uint8)
+    return p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CASES))
+def test_cuda_kernel_equals_plain(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc to build the kernel)")
+    p = {k: torch.tensor(v, device="cuda") for k, v in _problem(7, *CASES[case]).items()}
+    before = KERNEL.launches
+    got = masked_best_match_cams(**p)
+    ref = masked_best_match_cams_plain(**p)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    for name, a, b in zip(("best", "second", "idx", "col_best"), got, ref):
+        assert torch.equal(a, b), f"{case}: {name}"
+    if case == "all_disabled":
+        assert (got[2] == -1).all()
+    else:
+        assert (got[2] >= 0).sum() > 10
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_rejects_bad_inputs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc to build the kernel)")
+    p = {k: torch.tensor(v, device="cuda") for k, v in _problem(8, *CASES["ragged"]).items()}
+    with pytest.raises(ValueError):
+        masked_best_match_cams(**{**p, "uv_q": p["uv_q"].double()})
+    with pytest.raises(ValueError):
+        masked_best_match_cams(**{**p, "uv_t": p["uv_t"].transpose(0, 1).contiguous().transpose(0, 1)})
+    with pytest.raises(ValueError):
+        masked_best_match_cams(**{**p, "rad_t": p["rad_t"].cpu()})
