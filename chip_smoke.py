@@ -1,22 +1,36 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's per-frame tracking step once on one CUDA card.
+"""Drive the PyTorch port's tracking step and map bootstrap on one CUDA card.
 
     python3 chip_smoke.py
 
-Phases, each reported on its own line:
+Phases, each reported on its own lines:
   1. device: the card's name and power limit; TF32 off; the best-match
-     kernel built from `multicol_slam_tpu_torch/csrc/best_match.cu`.
-  2. kernel: the kernel against its plain PyTorch version on the card, at
-     the tracking shape (3 cameras, 400 queries, 4096 targets, 32-byte
-     descriptors), plain and masked, shared and per-camera targets, ragged
-     sizes, one camera, ties and an all-disabled case. All four outputs
-     must be exactly equal.
+     library built from `multicol_slam_tpu_torch/csrc/best_match.cu`.
+  2. kernel: K1 (`masked_best_match_cams`) against its plain PyTorch
+     version on the card, at the tracking shape (3 cameras, 400 queries,
+     4096 targets, 32-byte descriptors), plain and masked, shared and
+     per-camera targets, ragged sizes, one camera, ties and an all-disabled
+     case. All four outputs must be exactly equal.
   3. slice: one frame of the tracking step at full Lafida width (3 cameras
      of 754x480, 400 features, 8 levels, local map of 4096 points):
      extract_features -> track_frame_fused. Checks the inlier count, that
-     the kernel ran twice, and that the plain matcher gives the same answer.
-  4. timing: 30 frames after warm-up, and the kernel against its plain
-     version at the tracking shape.
+     K1 ran twice, and that the plain matcher gives the same answer.
+  4. timing: 30 frames after warm-up, and K1 against its plain version at
+     the tracking shape.
+  5. k2: K2 (`masked_best_match`, one camera) against its plain version,
+     exactly, at Q = T = 800, ragged, without rad_q, with ties, all
+     disabled, and with 16- and 64-byte descriptors; and against K1 at C=1.
+  6. bootstrap: the map bootstrap at full Lafida width on rendered frames
+     of a synthetic room (bench.py:207-211): the init bank (800 features,
+     FAST 5), `bootstrap` from frame 0 until it succeeds (2 K1 launches an
+     attempt), `calibrate_metric_scale`, `downselect_features` to 400.
+     Checks the match and survivor counts, the pose against the world's
+     ground truth, and that the plain matcher gives the same answer. K2
+     then runs the initializing pair's forward window match camera by
+     camera (no system path calls K2) and must equal K1's.
+  7. bootstrap timing: ms per attempt, for its window match, for the
+     scale calibration, and K1 / K2 against their plain versions at the
+     bootstrap shape.
 Then one JSON line of kernels, and last {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero. Needs one card; no CPU fallback.
 """
@@ -175,7 +189,9 @@ def build_slice(dev):
 
 def phase_slice(dev, state):
     import torch
-    from multicol_slam_tpu_torch.ops.best_match import KERNEL, masked_best_match_cams_plain
+    from multicol_slam_tpu_torch.ops.best_match import (
+        KERNEL, KERNEL_SINGLE, masked_best_match_cams_plain,
+    )
     from multicol_slam_tpu_torch.slam.features import extract_features
     from multicol_slam_tpu_torch.slam.tracking_kernels import track_frame_fused, unpack_fused
 
@@ -188,10 +204,12 @@ def phase_slice(dev, state):
         return feats, track_frame_fused(mc6, intr, rig.cams, feats, pose0, pts, pts,
                                         radius1=15.0, radius2=4.0, th_desc=96.0, **extra)
 
-    KERNEL.launches = 0
+    KERNEL.launches = KERNEL_SINGLE.launches = 0
     feats, packed = frame()
     torch.cuda.synchronize()
     launches = KERNEL.launches
+    if KERNEL_SINGLE.launches != 0:
+        raise AssertionError("K2 launched on the tracking path")
     p = packed.cpu().numpy()
     pose1, n1, pose2, n_match2, n_inl2, assign2, inl2 = unpack_fused(p)
     K = feats.uv.shape[1]
@@ -272,6 +290,304 @@ def phase_timing(dev, state, frame, card):
     return kern_ms, plain_ms
 
 
+# the map bootstrap (system.py:226-240, 390-445) on bench.py:207-211's world
+BOOT_FRAMES = 13         # frame 0 is the reference; attempts on frames 1..12
+BOOT_FEATS, BOOT_FAST = 800, 5.0   # the init bank: 2x features at FAST threshold 5
+BOOT_SEED = 2            # seed of the RANSAC generator, + the frame index
+MIN_INIT_KPS = 100       # system.py:53
+# Ground-truth gates on the recovered metric pose of body 2 relative to
+# body 1: rotation <= 1 deg, and the translation's direction and length.
+# The JAX package, run through this recipe on the CPU, initializes on frame
+# 3 (0.141 m of baseline) for every RANSAC key, and over 16 keys its errors
+# spread over rotation 0.154-0.699 deg, direction 3.01-20.73 deg and scale
+# 0.85-38.73 % (the system's own key: 0.699 deg, 6.163 deg, 34.03 %). It
+# misses 5 deg and 10 % for most keys, so those two gates are the worst it
+# reached over the 16 keys.
+ROT_GATE_DEG = 1.0
+DIR_GATE_DEG = 20.73
+SCALE_GATE = 0.3873
+TIME_REPS = 5
+
+
+def k2_problem(rng, Q, T, B=B, frac_t=0.8, ties=False, with_rad_q=True):
+    """Random inputs of K2 (one camera) on a 754x480 image."""
+    if ties:
+        pool = rng.integers(0, 256, (4, B), dtype=np.uint8)
+        dq, dt = pool[rng.integers(0, 4, Q)], pool[rng.integers(0, 4, T)]
+    else:
+        dq = rng.integers(0, 256, (Q, B), dtype=np.uint8)
+        dt = rng.integers(0, 256, (T, B), dtype=np.uint8)
+    args = dict(
+        desc_q=dq,
+        uv_q=np.stack([rng.uniform(0, W, Q), rng.uniform(0, H, Q)], -1),
+        oct_q=rng.integers(0, 8, Q).astype(np.int32),
+        desc_t=dt,
+        uv_t=np.stack([rng.uniform(0, W, T), rng.uniform(0, H, T)], -1),
+        rad_t=np.where(rng.uniform(size=T) < frac_t, rng.uniform(30, 120, T), -1.0),
+        lvl_t=rng.integers(0, 8, T),
+    )
+    if with_rad_q:
+        args["rad_q"] = np.where(rng.uniform(size=Q) < 0.9, 1e9, -1.0)
+    if ties:
+        args["uv_q"] = np.round(args["uv_q"] / 16) * 16
+        args["uv_t"] = np.round(args["uv_t"] / 16) * 16
+    return args
+
+
+def phase_k2(dev):
+    """K2 == plain exactly on every case, and == K1 at C=1. Returns the
+    largest |error|."""
+    import torch
+    from multicol_slam_tpu_torch.ops.best_match import (
+        masked_best_match, masked_best_match_cams, masked_best_match_plain,
+    )
+
+    rng = np.random.default_rng(3)
+    cases = {
+        "Q=T=800": k2_problem(rng, 800, 800),
+        "ragged Q=37 T=1001": k2_problem(rng, 37, 1001),
+        "rad_q=None": k2_problem(rng, 800, 800, with_rad_q=False),
+        "ties": k2_problem(rng, 800, 800, ties=True),
+        "all disabled": k2_problem(rng, 800, 800, frac_t=0.0),
+        "16-byte descriptors": k2_problem(rng, 800, 800, B=16),
+        "64-byte descriptors": k2_problem(rng, 800, 800, B=64),
+    }
+    worst = 0.0
+    for name, args in cases.items():
+        a = to_device(args, dev)
+        got = masked_best_match(**a, level_tol=1.0)
+        ref = masked_best_match_plain(**a, level_tol=1.0)
+        one = {k: v[None] for k, v in a.items() if k != "desc_t"}
+        k1 = masked_best_match_cams(**one, desc_t=a["desc_t"], level_tol=1.0)
+        torch.cuda.synchronize()
+        for label, x, y, z in zip(("best", "second", "idx"), got, ref, k1):
+            if not torch.equal(x, y):
+                raise AssertionError(f"K2 != plain on '{name}': {label} differs in {int((x != y).sum())} entries")
+            if not torch.equal(x, z[0]):
+                raise AssertionError(f"K2 != K1 at C=1 on '{name}': {label}")
+            worst = max(worst, float((x.double() - y.double()).abs().max()))
+        n_match = int((got[2] >= 0).sum())
+        if (n_match == 0) != (name == "all disabled"):
+            raise AssertionError(f"K2 '{name}': {n_match} queries matched")
+        if name == "ties" and int(((got[0] == got[1]) & (got[2] >= 0)).sum()) == 0:
+            raise AssertionError("K2 'ties': no tie at the minimum")
+        log(f"k2: '{name}' exactly equal (tolerance 0) on best/second/idx, and equal to K1 at C=1 "
+            f"({n_match} queries matched)")
+    return worst
+
+
+def rot_deg(Ra, Rb):
+    return float(np.degrees(np.arccos(np.clip((np.trace(Ra.T @ Rb) - 1.0) / 2.0, -1.0, 1.0))))
+
+
+def build_bootstrap(dev):
+    """The rig on the host (for rendering) and on the card, the world of
+    bench.py:207-211, its first BOOT_FRAMES frames and the extractor tables."""
+    import torch
+    from multicol_slam_tpu_torch.io.render import render_frame
+    from multicol_slam_tpu_torch.io.synthetic import make_world
+    from multicol_slam_tpu_torch.models.camera import OmniCamera
+    from multicol_slam_tpu_torch.models.rig import MultiCamRig
+    from multicol_slam_tpu_torch.slam.features import ExtractorTables
+    from multicol_slam_tpu_torch.utils.config import ExtractorSettings
+
+    def rig_on(device):
+        cams = OmniCamera.from_params([POL] * C, [INVPOL] * C, [[1.0, 0.0, 0.0]] * C,
+                                      [[W / 2.0, H / 2.0]] * C, [[W, H]] * C, device=device)
+        return MultiCamRig.from_cayley(cams, torch.tensor(MC_CAYLEY, dtype=torch.float32, device=device))
+
+    settings = ExtractorSettings(n_features=400, n_levels=8, scale_factor=1.2, fast_th=20)
+    t0 = time.perf_counter()
+    world = make_world(n_points=3000, n_frames=BOOT_FRAMES, n_cams=C, n_feats=400, noise_px=0.0,
+                       trajectory="circle_noyaw", radius=3.0, seed=12, period=400, landmarks="room",
+                       max_vis_dist=12.0, rig=rig_on(None))
+    images = [render_frame(world, t) for t in range(BOOT_FRAMES)]
+    log(f"bootstrap: rendered {BOOT_FRAMES} frames of {C}x{W}x{H} on the host in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return world, images, rig_on(dev), settings, ExtractorTables(settings, H, W, device=dev)
+
+
+def phase_bootstrap(dev, boot):
+    """The map bootstrap as `_try_initialize` runs it. Returns what the
+    timing phase and the kernels line need."""
+    import torch
+    from multicol_slam_tpu_torch.ops.best_match import (
+        BIG, KERNEL, KERNEL_SINGLE, masked_best_match, masked_best_match_cams,
+        masked_best_match_cams_plain,
+    )
+    from multicol_slam_tpu_torch.ops.fast import level_quota
+    from multicol_slam_tpu_torch.slam.features import downselect_features, extract_features
+    from multicol_slam_tpu_torch.slam.initializer import _mt2_of_scale, bootstrap, calibrate_metric_scale
+    from multicol_slam_tpu_torch.slam.tracking_kernels import match_window_frames
+    from multicol_slam_tpu_torch.utils.geometry import cayley_to_hom
+
+    world, images, rig, settings, tables = boot
+
+    def extract(t):
+        return extract_features(torch.tensor(images[t], device=dev), rig.cams, settings, tables,
+                                n_features=BOOT_FEATS, fast_th=BOOT_FAST)
+
+    def generator(t):
+        return torch.Generator(device=dev).manual_seed(BOOT_SEED + t)
+
+    # the main path: counts to 0, init-bank extraction, attempts until one
+    # succeeds, the metric scale, the downselect; counts read after
+    KERNEL.launches = KERNEL_SINGLE.launches = 0
+    ref_t, ref = 0, extract(0)
+    if int(ref.valid.sum()) <= MIN_INIT_KPS:
+        raise AssertionError(f"frame 0 has {int(ref.valid.sum())} features")
+    res = None
+    for t in range(1, BOOT_FRAMES):
+        cur = extract(t)
+        before = KERNEL.launches
+        res, n_total = bootstrap(rig, ref, cur, generator=generator(t))
+        torch.cuda.synchronize()
+        per_attempt = KERNEL.launches - before
+        log(f"bootstrap: attempt frame {t} against frame {ref_t}: {n_total} window matches, "
+            f"{'initialized' if res is not None else 'not yet'}, K1 launches {per_attempt}")
+        if per_attempt != 2:
+            raise AssertionError(f"K1 launched {per_attempt} times in one attempt, expected 2")
+        if res is not None:
+            break
+        if n_total < 100 and int(cur.valid.sum()) > MIN_INIT_KPS:
+            ref_t, ref = t, cur
+    if res is None:
+        raise AssertionError(f"no initialization within {BOOT_FRAMES - 1} frames")
+    l = res.leading_cam
+    scale, n_cross = calibrate_metric_scale(rig, ref, cur, res)
+    Mc = rig.Mc[l].cpu().numpy().astype(np.float64)
+    T21 = np.linalg.inv(np.linalg.inv(Mc) @ res.Mt2 @ Mc)
+    Mt2 = _mt2_of_scale(rig, l, T21[:3, :3], T21[:3, 3], scale)
+    r1 = ref.response.reshape(-1).cpu().numpy()
+    r2 = cur.response.reshape(-1).cpu().numpy()
+    strong = (r1[res.feat1] >= settings.fast_th) & (r2[res.feat2] >= settings.fast_th)
+    quotas = level_quota(settings.n_features, settings.n_levels, settings.scale_factor)
+    ref_d, remap1 = downselect_features(ref, settings.n_features, keep=res.feat1[strong], quotas=quotas)
+    cur_d, remap2 = downselect_features(cur, settings.n_features, keep=res.feat2[strong], quotas=quotas)
+    torch.cuda.synchronize()
+    launches, k2_launches = KERNEL.launches, KERNEL_SINGLE.launches
+    n_attempts = t
+    f1, f2 = remap1[res.feat1], remap2[res.feat2]
+    n_map = int(((f1 >= 0) & (f2 >= 0) & strong).sum())
+
+    # checks against the world's ground truth
+    gt_M = [cayley_to_hom(torch.tensor(world.poses[i], dtype=torch.float64)).numpy() for i in (ref_t, t)]
+    gt = np.linalg.inv(gt_M[0]) @ gt_M[1]
+    te, tg = Mt2[:3, 3], gt[:3, 3]
+    rot_err = rot_deg(Mt2[:3, :3], gt[:3, :3])
+    dir_err = float(np.degrees(np.arccos(np.clip(te @ tg / np.linalg.norm(te) / np.linalg.norm(tg), -1, 1))))
+    scale_err = float(abs(np.linalg.norm(te) / np.linalg.norm(tg) - 1.0))
+    n_feats = int(ref.valid.sum()), int(cur.valid.sum())
+    log(f"bootstrap: initialized on frame {t} against frame {ref_t} after {n_attempts} attempts; "
+        f"leading camera {l}; {n_total} window matches, {res.n_matches} CheckRT survivors; "
+        f"init-bank features {n_feats[0]} / {n_feats[1]} of {C}x{BOOT_FEATS}")
+    log(f"bootstrap: metric scale {scale:.6f} ({n_cross} cross-camera inliers); |t| {np.linalg.norm(te):.6f} m "
+        f"vs true {np.linalg.norm(tg):.6f} m; errors: rotation {rot_err:.4f} deg (gate {ROT_GATE_DEG}), "
+        f"translation direction {dir_err:.4f} deg (gate {DIR_GATE_DEG}), scale {100 * scale_err:.3f} % "
+        f"(gate {100 * SCALE_GATE:.1f} %)")
+    log(f"bootstrap: downselect to {settings.n_features} a camera: {int(ref_d.valid.sum())} / "
+        f"{int(cur_d.valid.sum())} features kept, {n_map} of {res.n_matches} map points keep both slots; "
+        f"K1 launches on the path {launches} ({n_attempts} attempts), K2 {k2_launches}")
+    if n_total < 100 or res.n_matches < 30:
+        raise AssertionError(f"{n_total} matches (gate 100), {res.n_matches} survivors (gate 30)")
+    if launches != 2 * n_attempts or k2_launches != 0:
+        raise AssertionError(f"K1 launched {launches} times in {n_attempts} attempts, K2 {k2_launches}")
+    if rot_err > ROT_GATE_DEG or dir_err > DIR_GATE_DEG or scale_err > SCALE_GATE:
+        raise AssertionError("recovered pose misses a ground-truth gate")
+    if tuple(ref_d.valid.shape) != (C, settings.n_features) or n_map == 0:
+        raise AssertionError(f"downselect gave {tuple(ref_d.valid.shape)} and {n_map} map points")
+
+    # the plain matcher, same generator seed: the same answer
+    idx_k, d_k = match_window_frames(ref, cur, radius=100.0, th_desc=64.0, ratio=0.9, check_rotation=True)
+    idx_p, d_p = match_window_frames(ref, cur, radius=100.0, th_desc=64.0, ratio=0.9, check_rotation=True,
+                                     match_fn=masked_best_match_cams_plain)
+    res_p, n_p = bootstrap(rig, ref, cur, generator=generator(t), match_fn=masked_best_match_cams_plain)
+    dM = float(np.abs(res_p.Mt2 - res.Mt2).max()) if res_p is not None else float("inf")
+    if not (torch.equal(idx_k, idx_p) and torch.equal(d_k, d_p)) or n_p != n_total or res_p is None \
+            or res_p.leading_cam != l or not np.array_equal(res_p.feat1, res.feat1) \
+            or not np.array_equal(res_p.feat2, res.feat2) or dM > 1e-6:
+        raise AssertionError(f"plain matcher gives another bootstrap (Mt2 differs by {dM})")
+    log(f"bootstrap: plain matcher: same match_idx, same {res.n_matches} survivors, Mt2 within {dM:.2e}")
+
+    # K2 on the initializing pair: the forward window match, camera by camera
+    zeros = torch.zeros(ref.valid.shape[1], device=dev)
+    fwd = []
+    for c in range(C):
+        rad_t = torch.where(cur.valid[c], 100.0, -1.0).to(torch.float32)
+        rad_q = torch.where(ref.valid[c], BIG, -1.0).to(torch.float32)
+        fwd.append(dict(desc_q=ref.desc[c], uv_q=ref.uv[c], oct_q=zeros, desc_t=cur.desc[c].contiguous(),
+                        uv_t=cur.uv[c], rad_t=rad_t, lvl_t=zeros, rad_q=rad_q, level_tol=1e9))
+    KERNEL.launches = KERNEL_SINGLE.launches = 0
+    k2_out = [masked_best_match(**a) for a in fwd]
+    torch.cuda.synchronize()
+    k2_drive = KERNEL_SINGLE.launches
+    stack = {k: torch.stack([a[k] for a in fwd]) for k in fwd[0] if k != "level_tol"}
+    k1_out = masked_best_match_cams(**stack, level_tol=1e9)
+    for c in range(C):
+        for x, y in zip(k2_out[c], k1_out):
+            if not torch.equal(x, y[c]):
+                raise AssertionError(f"K2 != K1's forward window match on camera {c}")
+    if k2_drive != C or KERNEL.launches != 1:
+        raise AssertionError(f"K2 launched {k2_drive} times for {C} cameras")
+    log(f"bootstrap: K2 on the initializing pair, camera by camera (Q=T={BOOT_FEATS}): equal to K1's "
+        f"forward window match; K2 launches {k2_drive}")
+    return dict(ref=ref, cur=cur, res=res, t=t, generator=generator, fwd=fwd, stack=stack,
+                launches=launches, k2_drive=k2_drive)
+
+
+def host_ms(fn, reps):
+    """Mean ms of fn over reps calls, synchronised before and after each."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.mean(out)), out
+
+
+def kernel_vs_plain(kern, plain):
+    """Kernel and plain ms, measured plain/kernel/kernel/plain in one call."""
+    time_cuda(kern, 5), time_cuda(plain, 5)
+    ms = [time_cuda(f, KERNEL_REPS) for f in (plain, kern, kern, plain)]
+    return (ms[1] + ms[2]) / 2, (ms[0] + ms[3]) / 2, ms
+
+
+def phase_bootstrap_timing(dev, boot, out, card):
+    from multicol_slam_tpu_torch.ops.best_match import (
+        masked_best_match, masked_best_match_cams, masked_best_match_cams_plain, masked_best_match_plain,
+    )
+    from multicol_slam_tpu_torch.slam.initializer import bootstrap, calibrate_metric_scale
+    from multicol_slam_tpu_torch.slam.tracking_kernels import match_window_frames
+
+    _, _, rig, _, _ = boot
+    ref, cur, res, t = out["ref"], out["cur"], out["res"], out["t"]
+    attempt_ms, runs = host_ms(lambda: bootstrap(rig, ref, cur, generator=out["generator"](t)), TIME_REPS)
+    log(f"timing: bootstrap attempt {attempt_ms:.3f} ms (runs {', '.join(f'{x:.3f}' for x in runs)}; "
+        f"host clock, synchronised) [{card}]")
+    match_ms, runs = host_ms(lambda: match_window_frames(ref, cur, radius=100.0, th_desc=64.0, ratio=0.9,
+                                                         check_rotation=True), TIME_REPS)
+    log(f"timing: match_window_frames inside it {match_ms:.3f} ms "
+        f"(runs {', '.join(f'{x:.3f}' for x in runs)}) [{card}]")
+    calib_ms, runs = host_ms(lambda: calibrate_metric_scale(rig, ref, cur, res), TIME_REPS)
+    log(f"timing: calibrate_metric_scale {calib_ms:.3f} ms (96 + 64 scales, {len(res.points_cam)} points; "
+        f"runs {', '.join(f'{x:.3f}' for x in runs)}) [{card}]")
+    a = out["stack"]
+    k1_ms, k1_plain, ms = kernel_vs_plain(lambda: masked_best_match_cams(**a, level_tol=1e9),
+                                          lambda: masked_best_match_cams_plain(**a, level_tol=1e9))
+    log(f"timing: K1 at the bootstrap shape C={C} Q=T={BOOT_FEATS} B={B} radius 100 level_tol 1e9: "
+        f"kernel {k1_ms * 1e3:.2f} us, plain {k1_plain * 1e3:.2f} us (runs plain/kernel/kernel/plain: "
+        f"{', '.join(f'{x * 1e3:.2f}' for x in ms)} us) [{card}]")
+    a2 = out["fwd"][0]
+    k2_ms, k2_plain, ms = kernel_vs_plain(lambda: masked_best_match(**a2), lambda: masked_best_match_plain(**a2))
+    log(f"timing: K2 at Q=T={BOOT_FEATS} B={B}: kernel {k2_ms * 1e3:.2f} us, plain {k2_plain * 1e3:.2f} us "
+        f"(runs plain/kernel/kernel/plain: {', '.join(f'{x * 1e3:.2f}' for x in ms)} us) [{card}]")
+    return dict(k1_ms=k1_ms, k1_plain=k1_plain, k2_ms=k2_ms, k2_plain=k2_plain)
+
+
 def main():
     import torch
 
@@ -297,16 +613,33 @@ def main():
     state = build_slice(dev)
     launches, frame = phase_slice(dev, state)
     kern_ms, plain_ms = phase_timing(dev, state, frame, card)
+    k2_err = phase_k2(dev)
+    boot = build_bootstrap(dev)
+    out = phase_bootstrap(dev, boot)
+    bt = phase_bootstrap_timing(dev, boot, out, card)
 
     log(json.dumps({"kernels": [{
         "name": "masked_best_match_cams",
         "route": "cuda",
         "source": "multicol_slam_tpu_torch/csrc/best_match.cu",
         "replaces": "multicol_slam_tpu/ops/pallas_match.py:200",
-        "launches": launches,
+        "launches": launches + out["launches"],
+        "launches_by_path": {"tracking": launches, "bootstrap": out["launches"]},
         "max_abs_err": max_err,
         "ms": kern_ms,
         "plain_ms": plain_ms,
+        "bootstrap_shape_ms": bt["k1_ms"],
+        "bootstrap_shape_plain_ms": bt["k1_plain"],
+    }, {
+        "name": "masked_best_match",
+        "route": "cuda",
+        "source": "multicol_slam_tpu_torch/csrc/best_match.cu",
+        "replaces": "multicol_slam_tpu/ops/pallas_match.py:113",
+        "launches": out["k2_drive"],
+        "launches_by_path": {"tracking": 0, "bootstrap": 0, "k2_window_match_by_camera": out["k2_drive"]},
+        "max_abs_err": k2_err,
+        "ms": bt["k2_ms"],
+        "plain_ms": bt["k2_plain"],
     }]}))
     log(f"card: {card}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,15 +1,16 @@
 """Carry the reference package's state, given as numpy arrays, into the port.
 
-The tracking step learns nothing, so its state is the rig calibration, the
-local map and a frame's features. Each function takes the arrays the JAX
-package holds (`np.asarray` of its fields) and returns the port's objects on
-`device`.
+The system learns nothing, so its state is the rig calibration, the local
+map, a frame's features and, for tests and benchmarks, the synthetic world.
+Each function takes the arrays the JAX package holds (`np.asarray` of its
+fields) and returns the port's objects on `device`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from multicol_slam_tpu_torch.io.synthetic import SyntheticWorld
 from multicol_slam_tpu_torch.models.camera import OmniCamera
 from multicol_slam_tpu_torch.models.rig import MultiCamRig
 from multicol_slam_tpu_torch.slam.features import FrameFeatures
@@ -50,3 +51,12 @@ def frame_features_from_numpy(uv, response, octave, angle, rays, desc, dmask, va
         rays=_t(rays, f32, device), desc=_t(desc, np.uint8, device),
         dmask=_t(dmask, np.uint8, device), valid=_t(valid, bool, device),
     )
+
+
+def world_from_numpy(points, descs, poses, timestamps, n_feats, noise_px, seed, max_vis_dist,
+                     rig: MultiCamRig) -> SyntheticWorld:
+    """A reference `SyntheticWorld`'s fields -> the port's, with `rig` made
+    by `rig_from_numpy` (the arrays stay numpy, as in the reference)."""
+    return SyntheticWorld(rig, np.asarray(points, np.float32), np.asarray(descs, np.uint8),
+                          np.asarray(poses, np.float32), np.asarray(timestamps),
+                          int(n_feats), float(noise_px), int(seed), float(max_vis_dist))

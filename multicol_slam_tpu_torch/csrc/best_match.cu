@@ -1,8 +1,13 @@
 // Fused masked-Hamming best match over a rig of cameras, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel masked_best_match_pallas_cams
-// (multicol_slam_tpu/ops/pallas_match.py:200, bodies `kernel` and
-// `kernel_masked`). Per camera c and query q, over the targets t that pass
+// Replaces two TPU kernels of multicol_slam_tpu/ops/pallas_match.py:
+//   mcslam_best_match         masked_best_match_pallas_cams (:200, bodies
+//                             `kernel` and `kernel_masked`);
+//   mcslam_best_match_single  masked_best_match_pallas (:113, body
+//                             `_match_kernel`): one camera, no masks, no
+//                             col_best. The same kernel with COLS = false
+//                             compiles the column work out.
+// Per camera c and query q, over the targets t that pass
 //     |u_q - u_t| <= r, |v_q - v_t| <= r with r = min(rad_q, rad_t)
 //     (a negative radius disables), and |oct_q - lvl_t| <= level_tol,
 // it returns best, second (min over every column but the argmin), idx (the
@@ -25,7 +30,8 @@
 // on 132 SMs: each warp walks all 4096 targets in sequence, so the kernel
 // is latency-bound, not bandwidth- or issue-bound. Splitting the targets
 // across blocks (with a merge of the partial best / second / idx) is the
-// way to fill the card.
+// way to fill the card. The bootstrap's window match (3 x 800 x 800) is 21
+// blocks; the single-camera entry at 800 x 800 is 7: latency-bound alike.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,7 +53,7 @@ __global__ void fill_kernel(float* __restrict__ out, long long n, float v) {
   if (i < n) out[i] = v;
 }
 
-template <int NW, bool MASKED>
+template <int NW, bool MASKED, bool COLS>
 __global__ void __launch_bounds__(kQueryTile) best_match_kernel(
     const uint32_t* __restrict__ desc_q, const uint32_t* __restrict__ mask_q,
     const float* __restrict__ uv_q, const float* __restrict__ oct_q,
@@ -63,7 +69,7 @@ __global__ void __launch_bounds__(kQueryTile) best_match_kernel(
   __shared__ uint32_t s_mask[MASKED ? kTargetTile * NW : 1];
   __shared__ float s_u[kTargetTile], s_v[kTargetTile];
   __shared__ float s_rad[kTargetTile], s_lvl[kTargetTile];
-  __shared__ unsigned s_col[kTargetTile];
+  __shared__ unsigned s_col[COLS ? kTargetTile : 1];
 
   const int c = blockIdx.y;
   const int q = blockIdx.x * kQueryTile + threadIdx.x;
@@ -106,7 +112,7 @@ __global__ void __launch_bounds__(kQueryTile) best_match_kernel(
       s_v[i] = uv_t[2 * tt + 1];
       s_rad[i] = rad_t[tt];
       s_lvl[i] = lvl_t[tt];
-      s_col[i] = kNone;
+      if (COLS) s_col[i] = kNone;
     }
     __syncthreads();
 
@@ -136,15 +142,19 @@ __global__ void __launch_bounds__(kQueryTile) best_match_kernel(
       } else if (d < second) {
         second = d;
       }
-      const unsigned m = __reduce_min_sync(0xffffffffu, d);
-      if ((threadIdx.x & 31) == 0 && m != kNone) atomicMin(&s_col[j], m);
+      if (COLS) {
+        const unsigned m = __reduce_min_sync(0xffffffffu, d);
+        if ((threadIdx.x & 31) == 0 && m != kNone) atomicMin(&s_col[j], m);
+      }
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < n; i += kQueryTile) {
-      const unsigned m = s_col[i];
-      if (m != kNone) {
-        atomicMin(reinterpret_cast<int*>(col_best + tbase + t0 + i),
-                  __float_as_int(0.5f * (float)m));
+    if (COLS) {
+      __syncthreads();
+      for (int i = threadIdx.x; i < n; i += kQueryTile) {
+        const unsigned m = s_col[i];
+        if (m != kNone) {
+          atomicMin(reinterpret_cast<int*>(col_best + tbase + t0 + i),
+                    __float_as_int(0.5f * (float)m));
+        }
       }
     }
   }
@@ -169,17 +179,32 @@ struct Args {
   float* colb;
 };
 
+template <int NW, bool MASKED, bool COLS>
+void launch_variant(const Args& g, dim3 grid, cudaStream_t s) {
+  best_match_kernel<NW, MASKED, COLS><<<grid, kQueryTile, 0, s>>>(
+      g.dq, g.mq, g.uvq, g.octq, g.radq, g.dt, g.mt, g.stride, g.uvt, g.radt, g.lvlt,
+      g.Q, g.T, g.tol, g.best, g.second, g.idx, g.colb);
+}
+
 template <int NW>
 void launch(const Args& g, dim3 grid, cudaStream_t s) {
-  if (g.mq != nullptr) {
-    best_match_kernel<NW, true><<<grid, kQueryTile, 0, s>>>(
-        g.dq, g.mq, g.uvq, g.octq, g.radq, g.dt, g.mt, g.stride, g.uvt, g.radt, g.lvlt,
-        g.Q, g.T, g.tol, g.best, g.second, g.idx, g.colb);
+  if (g.colb == nullptr) {
+    launch_variant<NW, false, false>(g, grid, s);
+  } else if (g.mq != nullptr) {
+    launch_variant<NW, true, true>(g, grid, s);
   } else {
-    best_match_kernel<NW, false><<<grid, kQueryTile, 0, s>>>(
-        g.dq, g.mq, g.uvq, g.octq, g.radq, g.dt, g.mt, g.stride, g.uvt, g.radt, g.lvlt,
-        g.Q, g.T, g.tol, g.best, g.second, g.idx, g.colb);
+    launch_variant<NW, false, true>(g, grid, s);
   }
+}
+
+int launch_bytes(const Args& g, dim3 grid, int desc_bytes, cudaStream_t s) {
+  switch (desc_bytes) {
+    case 16: launch<4>(g, grid, s); break;
+    case 32: launch<8>(g, grid, s); break;
+    case 64: launch<16>(g, grid, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -209,12 +234,30 @@ extern "C" int mcslam_best_match(
                  static_cast<const float*>(lvl_t), Q, T, level_tol, static_cast<float*>(best),
                  static_cast<float*>(second), static_cast<int*>(idx),
                  static_cast<float*>(col_best)};
-    switch (desc_bytes) {
-      case 16: launch<4>(g, grid, s); break;
-      case 32: launch<8>(g, grid, s); break;
-      case 64: launch<16>(g, grid, s); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
+    const int err = launch_bytes(g, grid, desc_bytes, s);
+    if (err != 0) return err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// One camera, no masks, no col_best (masked_best_match_pallas): best,
+// second and idx of the [Q, T] window- and level-masked Hamming matrix.
+extern "C" int mcslam_best_match_single(
+    const void* desc_q, const void* uv_q, const void* oct_q, const void* rad_q,
+    const void* desc_t, const void* uv_t, const void* rad_t, const void* lvl_t,
+    int Q, int T, int desc_bytes, float level_tol,
+    void* best, void* second, void* idx, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (Q > 0) {
+    const dim3 grid((Q + kQueryTile - 1) / kQueryTile, 1);
+    const Args g{static_cast<const uint32_t*>(desc_q), nullptr,
+                 static_cast<const float*>(uv_q), static_cast<const float*>(oct_q),
+                 static_cast<const float*>(rad_q), static_cast<const uint32_t*>(desc_t),
+                 nullptr, 0LL, static_cast<const float*>(uv_t), static_cast<const float*>(rad_t),
+                 static_cast<const float*>(lvl_t), Q, T, level_tol, static_cast<float*>(best),
+                 static_cast<float*>(second), static_cast<int*>(idx), nullptr};
+    const int err = launch_bytes(g, grid, desc_bytes, s);
+    if (err != 0) return err;
   }
   return (int)cudaGetLastError();
 }

@@ -10,6 +10,7 @@ Polynomials are zero-padded to fixed degrees so a rig's cameras stack into
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -94,6 +95,17 @@ def img_to_world(pol, cde, pp, uv: torch.Tensor) -> torch.Tensor:
     return torch.stack([x / n, y / n, z / n], dim=-1)
 
 
+def cam_world_to_img(cam: OmniCamera, cam_idx, X: torch.Tensor) -> torch.Tensor:
+    """Project with a per-point camera index: cam_idx [...] int (or an int),
+    X [..., 3] -> uv [..., 2]."""
+    return world_to_img(cam.invpol[cam_idx], cam.cde[cam_idx], cam.pp[cam_idx], X)
+
+
+def cam_img_to_world(cam: OmniCamera, cam_idx, uv: torch.Tensor) -> torch.Tensor:
+    """Unproject with a per-point camera index: uv [..., 2] -> unit rays [..., 3]."""
+    return img_to_world(cam.pol[cam_idx], cam.cde[cam_idx], cam.pp[cam_idx], uv)
+
+
 def in_mirror_mask(cam: OmniCamera, cam_idx, uv: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
     """Analytic mirror-mask test: inside the image and inside the circle of
     radius (v0 + 22) * scale around the scaled principal point. `scale` is the
@@ -125,3 +137,19 @@ def mirror_mask_grid(cam: OmniCamera, h: int, w: int, scale: float = 1.0) -> tor
     du, dv = xx - u0, yy - v0
     rad = (cam.pp[:, 1, None, None] + MIRROR_OFFSETS[0]) * scale
     return inside & (du * du + dv * dv < rad * rad)
+
+
+def fit_inverse_poly(pol, rho_max: float, deg: int = 12) -> np.ndarray:
+    """Fit the inverse polynomial rho(theta) from a forward polynomial z(rho)
+    so the pair round-trips, with theta = atan2(-z, rho) and
+    z = -horner(pol, rho). Returns MAX_INVPOL-padded float64 coefficients,
+    lowest order first (numpy, on the host)."""
+    pol = np.asarray(pol, np.float64)
+    rho = np.linspace(1e-6, rho_max, 512)
+    z = -np.polyval(pol[::-1], rho)
+    theta = np.arctan2(-z, rho)
+    order = np.argsort(theta)
+    coeffs = np.polyfit(theta[order], rho[order], deg)[::-1]
+    out = np.zeros(MAX_INVPOL, np.float64)
+    out[: deg + 1] = coeffs
+    return out

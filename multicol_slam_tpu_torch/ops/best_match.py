@@ -1,9 +1,14 @@
-"""Fused masked-Hamming best match over a rig of cameras: the CUDA kernel
-`csrc/best_match.cu` and its plain PyTorch version.
+"""Fused masked-Hamming best match: the CUDA kernels of `csrc/best_match.cu`
+and their plain PyTorch versions.
 
-Counterpart of `multicol_slam_tpu/ops/pallas_match.py`: the TPU kernel
-`masked_best_match_pallas_cams` (`pallas_call` at :361, bodies `kernel` and
-`kernel_masked`, :305-340), which the tracking stages call once per stage.
+Counterpart of `multicol_slam_tpu/ops/pallas_match.py`, two TPU kernels:
+
+  K1 `masked_best_match_cams` <- `masked_best_match_pallas_cams` (`pallas_call`
+     at :361, bodies `kernel` and `kernel_masked`, :305-340), called once per
+     tracking stage and twice by `match_window_frames`;
+  K2 `masked_best_match` <- `masked_best_match_pallas` (:113, body
+     `_match_kernel`, :45-98): one camera, no masks, no col_best.
+
 Per camera c and query q, over the targets t allowed by the window
 |uv_q - uv_t| <= min(rad_q, rad_t) (a negative radius disables) and the
 level band |oct_q - lvl_t| <= level_tol, it returns
@@ -23,9 +28,9 @@ warp walks every target in sequence. The design keeps every query's state
 in registers and stages target tiles in shared memory; splitting T across
 blocks is what would fill the card.
 
-`masked_best_match_cams` runs the plain version for CPU tensors only. For
-CUDA tensors it launches the kernel or raises. The kernel is built with
-nvcc for sm_90a at first use, into `multicol_slam_tpu_torch/build/`.
+Each wrapper runs its plain version for CPU tensors only. For CUDA tensors
+it launches its kernel or raises. The library is built with nvcc for sm_90a
+at first use, into `multicol_slam_tpu_torch/build/`.
 """
 from __future__ import annotations
 
@@ -62,14 +67,12 @@ def _find_nvcc() -> str:
     raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
 
 
-class BestMatchKernel:
-    """The built library and its launch count. `launches` goes up by one
-    each time `masked_best_match_cams` launches the kernel, and nowhere else."""
+class _Library:
+    """The shared library built from `SOURCE`, compiled once per content."""
 
     def __init__(self):
-        self.launches = 0
-        self.build_log = ""
-        self._fn = None
+        self.log = ""
+        self._lib = None
 
     def build(self) -> Path:
         """Compile the source (once per content) and return the library path."""
@@ -84,26 +87,55 @@ class BestMatchKernel:
         try:
             proc = subprocess.run([_find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
                                   capture_output=True, text=True)
-            self.build_log = proc.stdout + proc.stderr
+            self.log = proc.stdout + proc.stderr
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{self.build_log}")
+                raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{self.log}")
             os.replace(tmp, lib)
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
         return lib
 
+    def symbol(self, name: str):
+        if self._lib is None:
+            self._lib = ctypes.CDLL(str(self.build()))
+        return getattr(self._lib, name)
+
+
+_LIBRARY = _Library()
+
+
+class BestMatchKernel:
+    """One entry point of the library and its launch count. `launches` goes
+    up by one each time the entry's wrapper launches it, and nowhere else."""
+
+    def __init__(self, symbol: str, argtypes):
+        self.symbol_name = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fn = None
+
+    def build(self) -> Path:
+        return _LIBRARY.build()
+
+    @property
+    def build_log(self) -> str:
+        return _LIBRARY.log
+
     def function(self):
         if self._fn is None:
-            fn = ctypes.CDLL(str(self.build())).mcslam_best_match
-            p, i = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = [p] * 7 + [i] + [p] * 3 + [i] * 4 + [ctypes.c_float] + [p] * 5
+            fn = _LIBRARY.symbol(self.symbol_name)
+            fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
 
 
-KERNEL = BestMatchKernel()
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# K1, masked_best_match_cams
+KERNEL = BestMatchKernel("mcslam_best_match", [_P] * 7 + [_I] + [_P] * 3 + [_I] * 4 + [_F] + [_P] * 5)
+# K2, masked_best_match
+KERNEL_SINGLE = BestMatchKernel("mcslam_best_match_single", [_P] * 8 + [_I] * 3 + [_F] + [_P] * 4)
 
 
 def masked_best_match_cams_plain(
@@ -141,10 +173,16 @@ def masked_best_match_cams_plain(
     return best, second, idx, d.amin(dim=-2)
 
 
-def _check(name, t, dtype, shape):
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
-        raise ValueError(f"{name}: expected contiguous {dtype} {tuple(shape)}, "
-                         f"got {t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}")
+def _check_all(checks, dev):
+    """Dtype, shape, contiguity, device and 4-byte alignment of each input."""
+    for name, t, dtype, shape in checks:
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous {dtype} {tuple(shape)}, "
+                             f"got {t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, desc_q on {dev}")
+        if t.data_ptr() % 4:
+            raise ValueError(f"{name} is not 4-byte aligned")
 
 
 def masked_best_match_cams(
@@ -187,12 +225,7 @@ def masked_best_match_cams(
         if (mask_t.dim() == 2) != shared:
             raise ValueError("mask_t must be shared across cameras exactly when desc_t is")
         checks += [("mask_q", mask_q, torch.uint8, (C, Q, B)), ("mask_t", mask_t, torch.uint8, t_shape)]
-    for name, t, dtype, shape in checks:
-        _check(name, t, dtype, shape)
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, desc_q on {dev}")
-        if t.data_ptr() % 4:
-            raise ValueError(f"{name} is not 4-byte aligned")
+    _check_all(checks, dev)
     best = torch.empty((C, Q), dtype=torch.float32, device=dev)
     second = torch.empty((C, Q), dtype=torch.float32, device=dev)
     idx = torch.empty((C, Q), dtype=torch.int32, device=dev)
@@ -210,3 +243,77 @@ def masked_best_match_cams(
         raise RuntimeError(f"best_match kernel launch failed: cudaError_t {err}")
     KERNEL.launches += 1
     return best, second, idx, col_best
+
+
+def masked_best_match_plain(
+    desc_q: torch.Tensor,
+    uv_q: torch.Tensor,
+    oct_q: torch.Tensor,
+    desc_t: torch.Tensor,
+    uv_t: torch.Tensor,
+    rad_t: torch.Tensor,
+    lvl_t: torch.Tensor,
+    rad_q: Optional[torch.Tensor] = None,
+    level_tol: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K2: the dense [Q, T] masked Hamming matrix of one
+    camera, then the row reductions. Same arguments and outputs as
+    `masked_best_match`."""
+    best, second, idx, _ = masked_best_match_cams_plain(
+        desc_q[None], uv_q[None], oct_q[None], desc_t, uv_t[None], rad_t[None], lvl_t[None],
+        None if rad_q is None else rad_q[None], level_tol=level_tol)
+    return best[0], second[0], idx[0]
+
+
+def masked_best_match(
+    desc_q: torch.Tensor,    # [Q, B] uint8
+    uv_q: torch.Tensor,      # [Q, 2] f32
+    oct_q: torch.Tensor,     # [Q] f32 or i32
+    desc_t: torch.Tensor,    # [T, B] uint8
+    uv_t: torch.Tensor,      # [T, 2] f32
+    rad_t: torch.Tensor,     # [T] f32 (<0 disables)
+    lvl_t: torch.Tensor,     # [T] f32
+    rad_q: Optional[torch.Tensor] = None,   # [Q] f32 (None -> unlimited)
+    level_tol: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2: (best [Q], second [Q], idx [Q]) of one camera's window- and
+    level-masked Hamming matrix, the counterpart of the TPU kernel
+    `masked_best_match_pallas`. No masks and no col_best; the semantics are
+    K1's at C = 1 (ties to the lowest t, BIG and idx -1 when nothing passes).
+
+    No system path calls it: like its TPU counterpart it is a single-camera
+    op beside K1, held to its plain version by the tests and chip_smoke.py.
+    What bounds it is K1's latency: at Q = T = 800 the grid is one row of 7
+    blocks of 128 queries, each warp walking all 800 targets in sequence."""
+    if desc_q.device.type == "cpu":
+        return masked_best_match_plain(desc_q, uv_q, oct_q, desc_t, uv_t, rad_t, lvl_t,
+                                       rad_q, level_tol)
+    if not desc_q.is_cuda:
+        raise ValueError(f"masked_best_match: no kernel for device {desc_q.device}")
+    dev = desc_q.device
+    Q, B = desc_q.shape
+    T = desc_t.shape[0]
+    if B not in (16, 32, 64):
+        raise ValueError(f"descriptor bytes must be 16, 32 or 64, got {B}")
+    if rad_q is None:
+        rad_q = torch.full((Q,), BIG, dtype=torch.float32, device=dev)
+    oct_q = oct_q.to(torch.float32)
+    lvl_t = lvl_t.to(torch.float32)
+    _check_all([("desc_q", desc_q, torch.uint8, (Q, B)), ("uv_q", uv_q, torch.float32, (Q, 2)),
+                ("oct_q", oct_q, torch.float32, (Q,)), ("rad_q", rad_q, torch.float32, (Q,)),
+                ("desc_t", desc_t, torch.uint8, (T, B)), ("uv_t", uv_t, torch.float32, (T, 2)),
+                ("rad_t", rad_t, torch.float32, (T,)), ("lvl_t", lvl_t, torch.float32, (T,))], dev)
+    best = torch.empty((Q,), dtype=torch.float32, device=dev)
+    second = torch.empty((Q,), dtype=torch.float32, device=dev)
+    idx = torch.empty((Q,), dtype=torch.int32, device=dev)
+    fn = KERNEL_SINGLE.function()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(desc_q.data_ptr(), uv_q.data_ptr(), oct_q.data_ptr(), rad_q.data_ptr(),
+                 desc_t.data_ptr(), uv_t.data_ptr(), rad_t.data_ptr(), lvl_t.data_ptr(),
+                 Q, T, B, float(level_tol), best.data_ptr(), second.data_ptr(), idx.data_ptr(),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"best_match_single kernel launch failed: cudaError_t {err}")
+    KERNEL_SINGLE.launches += 1
+    return best, second, idx

@@ -1,5 +1,6 @@
-"""Dense Hamming distances between binary descriptors (port of
-`multicol_slam_tpu/ops/matching.py`, the parts the tracking step needs).
+"""Dense Hamming distances between binary descriptors, and the match
+filters (port of `multicol_slam_tpu/ops/matching.py`, the parts the
+tracking step and the map bootstrap need).
 
 Descriptors unpack to +-1 vectors and ham = (nbits - a.b) / 2. The products
 are float32: +-1 dot products are integers up to 512 in magnitude, so the
@@ -8,7 +9,10 @@ halved for the masked (mdBRIEF) distance.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
 
 def th_high(desc_bytes: int, masked: bool = False) -> float:
     return 1.5 * desc_bytes if masked else 3.0 * desc_bytes
@@ -50,3 +54,26 @@ def hamming_matrix_masked(desc_q, mask_q, desc_t, mask_t) -> torch.Tensor:
     sum_q = mq.sum(-1)[..., :, None]
     sum_t = mt.sum(-1)[..., None, :]
     return 0.25 * ((sum_q - dot_q) + (sum_t - dot_t))
+
+
+def mutual_filter(idx_qt: torch.Tensor, ok_q: torch.Tensor, idx_tq: torch.Tensor) -> torch.Tensor:
+    """Keep q only if t = idx_qt[q] maps back: idx_tq[t] == q (cross-check)."""
+    q_ids = torch.arange(idx_qt.shape[0], dtype=idx_qt.dtype, device=idx_qt.device)
+    return ok_q & (idx_tq[idx_qt.long()] == q_ids)
+
+
+def rotation_consistency(dangle: torch.Tensor, ok: torch.Tensor, n_bins: int = 30,
+                         keep_bins: int = 3) -> torch.Tensor:
+    """ORB rotation-histogram check (cORBmatcher's rotHist): histogram the
+    match angle deltas into 30 bins and keep only matches in the `keep_bins`
+    most popular bins that also hold >= 10% of the top bin's votes.
+    dangle [Q] radians; ok [Q] bool."""
+    two_pi = 2.0 * math.pi
+    frac = torch.remainder(dangle, two_pi) / two_pi            # floor modulo, as jnp's %
+    bins = torch.clamp((frac * n_bins).to(torch.int32), 0, n_bins - 1).long()
+    counts = torch.zeros(n_bins, dtype=torch.int32, device=dangle.device)
+    counts = counts.scatter_add(0, bins, ok.to(torch.int32))
+    top = torch.topk(counts, keep_bins).values
+    thresh = torch.maximum(top[-1], (0.1 * top[0]).to(counts.dtype))
+    keep = counts[bins] >= torch.clamp_min(thresh, 1)
+    return ok & keep

@@ -4,13 +4,16 @@
 All cameras go through each step together, the camera axis being a tensor
 dimension: pyramid, box blur, dense FAST with 3x3 NMS, grid top-K, IC angles,
 ORB descriptors, unit rays. The output is a fixed-capacity `FrameFeatures`,
-K = n_features slots per camera with a validity mask.
+K = n_features slots per camera with a validity mask. `downselect_features`
+reduces a frame of the bootstrap's init bank (2x features at FAST threshold
+5) to the runtime capacity, on the host.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -123,3 +126,56 @@ def extract_features(
     cam_ids = torch.arange(C, device=images.device)[:, None]
     rays = img_to_world(cams.pol[cam_ids], cams.cde[cam_ids], cams.pp[cam_ids], uv)
     return FrameFeatures(uv, resp, octave, ang, rays, desc, dmask, ok)
+
+
+FIELDS = ("uv", "response", "octave", "angle", "rays", "desc", "dmask", "valid")
+
+
+def downselect_features(feats: FrameFeatures, K: int, keep: Optional[np.ndarray] = None,
+                        quotas: Optional[np.ndarray] = None) -> Tuple[FrameFeatures, np.ndarray]:
+    """Reduce a [C, K2] frame (the init bank doubles the features,
+    cTracking.cpp:152-158) to the runtime [C, K] capacity.
+
+    Per camera, rows flagged in `keep` (flat indices c * K2 + i, e.g. the
+    bootstrap's triangulated features) win slots first; the rest fill by
+    detector response. `quotas` (per-level slot budgets summing to <= K, the
+    runtime bank's `level_quota`) keeps the extractor's level distribution,
+    and leftover room fills by priority. Host numpy, once per
+    initialization. Returns (FrameFeatures [C, K] on the input's device,
+    remap [C * K2] -> flat [C * K] index or -1)."""
+    C, K2 = feats.uv.shape[:2]
+    dev = feats.uv.device
+    fields = {name: getattr(feats, name).cpu().numpy() for name in FIELDS}
+    keep_mask = np.zeros((C, K2), bool)
+    if keep is not None and len(keep):
+        keep = np.asarray(keep, np.int64)
+        keep_mask[keep // K2, keep % K2] = True
+    out = {name: np.zeros((C, K) + a.shape[2:], a.dtype) for name, a in fields.items()}
+    out["dmask"][:] = 255
+    remap = np.full(C * K2, -1, np.int64)
+    for c in range(C):
+        prio = np.where(fields["valid"][c], fields["response"][c], -np.inf)
+        prio = np.where(keep_mask[c], prio + 1e9, prio)
+        if quotas is not None:
+            octv = fields["octave"][c]
+            chosen = []
+            taken = np.zeros(K2, bool)
+            for lvl, q in enumerate(np.asarray(quotas, np.int64)):
+                cand = np.nonzero((octv == lvl) & np.isfinite(prio))[0]
+                cand = cand[np.argsort(-prio[cand], kind="stable")][:q]
+                chosen.append(cand)
+                taken[cand] = True
+            rest = np.nonzero(~taken & np.isfinite(prio))[0]
+            room = K - sum(len(x) for x in chosen)
+            if room > 0 and len(rest):
+                chosen.append(rest[np.argsort(-prio[rest], kind="stable")][:room])
+            order = np.concatenate(chosen)[:K] if chosen else np.empty(0, np.int64)
+        else:
+            order = np.argsort(-prio, kind="stable")[:K]
+            order = order[np.isfinite(prio[order])]
+        n = len(order)
+        for name, a in fields.items():
+            out[name][c, :n] = a[c][order]
+        out["valid"][c, n:] = False
+        remap[c * K2 + order] = c * K + np.arange(n)
+    return FrameFeatures(**{k: torch.from_numpy(v).to(dev) for k, v in out.items()}), remap

@@ -1,5 +1,5 @@
-"""Per-frame tracking: project -> match -> pose-optimize (port of
-`multicol_slam_tpu/slam/tracking_kernels.py`; `match_window_frames` waits).
+"""Per-frame tracking: project -> match -> pose-optimize, and the window
+match of the map bootstrap (port of `multicol_slam_tpu/slam/tracking_kernels.py`).
 
 Each stage projects the local map into every camera, gates it (in front,
 inside the mirror, scale band, viewing angle), takes every feature's best
@@ -7,7 +7,9 @@ map point inside its window and level band with the best-match kernel
 (`ops/best_match.py`), settles duplicate claims, and runs two rounds of
 robust pose-only Gauss-Newton. `track_frame_fused` runs the motion-model
 stage and the local-map stage and packs the result into one tensor, with
-no host sync on the way.
+no host sync on the way. `match_window_frames` matches two frames camera by
+camera with two launches of the same kernel (forward and swapped, for the
+mutual check).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 
 from multicol_slam_tpu_torch.models.camera import OmniCamera, in_mirror_mask
 from multicol_slam_tpu_torch.ops.best_match import BIG, masked_best_match_cams
+from multicol_slam_tpu_torch.ops.matching import rotation_consistency
 from multicol_slam_tpu_torch.optim.ba import pose_optimization
 from multicol_slam_tpu_torch.optim.problem import BAParams, Observations, intr_project
 from multicol_slam_tpu_torch.slam.features import FrameFeatures
@@ -197,3 +200,45 @@ def unpack_fused(packed_np: np.ndarray):
         pose1, n1, p[:6], int(p[6]), int(p[7]),
         p[8:8 + ck].astype(np.int32), p[8 + ck:8 + 2 * ck] > 0.5,
     )
+
+
+def match_window_frames(
+    feats_q: FrameFeatures,
+    feats_t: FrameFeatures,
+    radius: float = 100.0,
+    th_desc: float = 64.0,
+    ratio: float = 0.9,
+    check_rotation: bool = False,
+    use_masks: bool = False,
+    match_fn: Callable = masked_best_match_cams,
+):
+    """Same-camera window matching between two frames (WindowSearch /
+    SearchForInitialization, cORBmatcher.cpp:326/:579): per-camera Hamming
+    inside a square window of `radius` px, Lowe ratio, mutual consistency
+    through the swapped call (targets as queries), and optionally the
+    rotation-histogram filter and the mdBRIEF masked distance (use_masks;
+    pass a x0.5-scaled th_desc). `match_fn` is the best-match kernel's
+    wrapper, or its plain version to compare against.
+
+    Returns (match_idx [C, K] target index or -1, dist [C, K])."""
+    C, K, _ = feats_q.desc.shape
+    dev = feats_q.desc.device
+    zeros = torch.zeros((C, K), dtype=torch.float32, device=dev)
+    rad_t = torch.where(feats_t.valid, torch.full_like(zeros, float(radius)), torch.full_like(zeros, -1.0))
+    rad_q = torch.where(feats_q.valid, torch.full_like(zeros, BIG), torch.full_like(zeros, -1.0))
+    best, second, idx, _ = match_fn(
+        feats_q.desc, feats_q.uv, zeros, feats_t.desc, feats_t.uv, rad_t, zeros, rad_q=rad_q,
+        mask_q=feats_q.dmask if use_masks else None,
+        mask_t=feats_t.dmask if use_masks else None, level_tol=1e9)
+    _, _, i_tq, _ = match_fn(
+        feats_t.desc, feats_t.uv, zeros, feats_q.desc, feats_q.uv, rad_q, zeros, rad_q=rad_t,
+        mask_q=feats_t.dmask if use_masks else None,
+        mask_t=feats_q.dmask if use_masks else None, level_tol=1e9)
+    idx0 = torch.clamp_min(idx, 0).long()
+    ok = (idx >= 0) & (best <= th_desc) & (best < ratio * second)
+    q_ids = torch.arange(K, dtype=i_tq.dtype, device=dev)[None, :]
+    ok = ok & (torch.gather(i_tq, 1, idx0) == q_ids)
+    if check_rotation:
+        dangle = (feats_q.angle - torch.gather(feats_t.angle, 1, idx0)).reshape(C * K)
+        ok = rotation_consistency(dangle, ok.reshape(C * K)).reshape(C, K)
+    return torch.where(ok, idx, torch.full_like(idx, -1)), best

@@ -32,11 +32,24 @@ def _bottom_row(batch, like: torch.Tensor) -> torch.Tensor:
     return row
 
 
+def rot_to_cayley(R: torch.Tensor) -> torch.Tensor:
+    """3x3 rotation -> Cayley 3-vector: C = (R - I)(R + I)^-1, c = (-C12, C02, -C01)."""
+    eye = torch.eye(3, dtype=R.dtype, device=R.device)
+    # C = (R - I) inv(R + I) == solve((R + I)^T, (R - I)^T)^T
+    C = torch.linalg.solve((R + eye).transpose(-1, -2), (R - eye).transpose(-1, -2)).transpose(-1, -2)
+    return torch.stack([-C[..., 1, 2], C[..., 0, 2], -C[..., 0, 1]], dim=-1)
+
+
 def cayley_to_hom(c6: torch.Tensor) -> torch.Tensor:
     """[c1 c2 c3 tx ty tz] -> 4x4 homogeneous transform."""
     R = cayley_to_rot(c6[..., :3])
     top = torch.cat([R, c6[..., 3:6, None]], dim=-1)
     return torch.cat([top, _bottom_row(c6.shape[:-1], c6)], dim=-2)
+
+
+def hom_to_cayley(M: torch.Tensor) -> torch.Tensor:
+    """4x4 -> [c1 c2 c3 tx ty tz]."""
+    return torch.cat([rot_to_cayley(M[..., :3, :3]), M[..., :3, 3]], dim=-1)
 
 
 def hom_inverse(M: torch.Tensor) -> torch.Tensor:
@@ -50,6 +63,32 @@ def hom_inverse(M: torch.Tensor) -> torch.Tensor:
 def transform_points(M: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """Apply 4x4 transform(s) to 3-D point(s): R X + t. Broadcasts."""
     return torch.einsum("...ij,...j->...i", M[..., :3, :3], X) + M[..., :3, 3]
+
+
+def skew(v: torch.Tensor) -> torch.Tensor:
+    """3-vector -> skew-symmetric 3x3 (batched)."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    zero = torch.zeros_like(x)
+    return torch.stack([torch.stack([zero, -z, y], -1),
+                        torch.stack([z, zero, -x], -1),
+                        torch.stack([-y, x, zero], -1)], dim=-2)
+
+
+def triangulate_midpoint(o1, d1, o2, d2):
+    """Midpoint triangulation of two rays (origin o, unit direction d):
+    solve the 2x2 system for the ray depths, average the two closest points.
+    Batched over leading dims. Returns (X [..., 3], lam1 [...], lam2 [...])."""
+    b = o2 - o1
+    d1d2 = torch.sum(d1 * d2, dim=-1)
+    bd1 = torch.sum(b * d1, dim=-1)
+    bd2 = torch.sum(b * d2, dim=-1)
+    denom = 1.0 - d1d2 * d1d2
+    denom = torch.where(torch.abs(denom) < 1e-12, torch.full_like(denom, 1e-12), denom)
+    lam1 = (bd1 - bd2 * d1d2) / denom
+    lam2 = (bd1 * d1d2 - bd2) / denom
+    p1 = o1 + lam1[..., None] * d1
+    p2 = o2 + lam2[..., None] * d2
+    return 0.5 * (p1 + p2), lam1, lam2
 
 
 def horner(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

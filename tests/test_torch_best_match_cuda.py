@@ -1,17 +1,19 @@
-"""The CUDA best-match kernel against its plain PyTorch version, on the card.
+"""The CUDA best-match kernels (K1 over a rig, K2 for one camera) against
+their plain PyTorch versions, on the card.
 
 Imports no JAX, so it also runs on a machine without it:
 
     python -m pytest tests/test_torch_best_match_cuda.py -q --noconftest
 
 (`--noconftest`: tests/conftest.py configures JAX). Every case skips where
-there is no CUDA device. All four outputs must be exactly equal."""
+there is no CUDA device. All outputs must be exactly equal."""
 import numpy as np
 import pytest
 import torch
 
 from multicol_slam_tpu_torch.ops.best_match import (
-    KERNEL, masked_best_match_cams, masked_best_match_cams_plain,
+    KERNEL, KERNEL_SINGLE, masked_best_match, masked_best_match_cams, masked_best_match_cams_plain,
+    masked_best_match_plain,
 )
 
 # (C, Q, T, desc bytes, shared desc_t, masked, ties, share of enabled targets)
@@ -84,3 +86,36 @@ def test_cuda_wrapper_rejects_bad_inputs():
         masked_best_match_cams(**{**p, "uv_t": p["uv_t"].transpose(0, 1).contiguous().transpose(0, 1)})
     with pytest.raises(ValueError):
         masked_best_match_cams(**{**p, "rad_t": p["rad_t"].cpu()})
+
+
+# K2: (Q, T, desc bytes, ties, share of enabled targets, with rad_q)
+K2_CASES = {
+    "bootstrap_800": (800, 800, 32, False, 0.8, True),
+    "ragged": (37, 1001, 32, False, 0.8, True),
+    "no_rad_q": (300, 700, 32, False, 0.8, False),
+    "ties": (200, 900, 32, True, 0.8, True),
+    "all_disabled": (16, 256, 32, False, 0.0, True),
+    "16_bytes": (40, 300, 16, False, 0.8, True),
+    "64_bytes": (40, 300, 64, False, 0.8, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K2_CASES))
+def test_cuda_single_camera_kernel_equals_plain_and_k1(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc to build the kernel)")
+    Q, T, B, ties, frac_t, with_rad_q = K2_CASES[case]
+    p = {k: torch.tensor(v[0], device="cuda")    # camera 0 of a one-camera problem
+         for k, v in _problem(9, 1, Q, T, B, False, False, ties, frac_t).items()
+         if with_rad_q or k != "rad_q"}
+    before = (KERNEL.launches, KERNEL_SINGLE.launches)
+    got = masked_best_match(**p)
+    assert (KERNEL.launches, KERNEL_SINGLE.launches) == (before[0], before[1] + 1)
+    ref = masked_best_match_plain(**p)
+    k1 = masked_best_match_cams(**{k: v[None] for k, v in p.items()})
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("best", "second", "idx"), got, ref, k1):
+        assert torch.equal(a, b), f"{case}: {name}"
+        assert torch.equal(a, c[0]), f"{case}: {name} vs K1"
+    assert ((got[2] >= 0).sum() > 0) == (case != "all_disabled")

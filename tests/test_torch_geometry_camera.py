@@ -88,3 +88,31 @@ def test_mirror_masks_equal():
         g_j = jcam.mirror_mask_grid(jrig.cams, h, w, scale=s)
         g_t = tcam.mirror_mask_grid(trig.cams, h, w, scale=s)
         np.testing.assert_array_equal(np.asarray(g_j), g_t.numpy())
+
+
+def test_rot_hom_to_cayley_and_skew():
+    rng = np.random.default_rng(4)
+    c6 = rng.normal(0, 0.5, (6, 6)).astype(np.float32)
+    Mj = jgeo.cayley_to_hom(jnp.asarray(c6))
+    Mt = tgeo.cayley_to_hom(torch.tensor(c6))
+    _close(jgeo.rot_to_cayley(Mj[:, :3, :3]), tgeo.rot_to_cayley(Mt[:, :3, :3]), rtol=1e-5, atol=1e-5)
+    _close(jgeo.hom_to_cayley(Mj), tgeo.hom_to_cayley(Mt), rtol=1e-5, atol=1e-5)
+    _close(c6, tgeo.hom_to_cayley(Mt), rtol=1e-4, atol=1e-5)   # the round trip
+    v = rng.normal(size=(4, 5, 3)).astype(np.float32)
+    np.testing.assert_array_equal(tgeo.skew(torch.tensor(v)).numpy(), np.asarray(jgeo.skew(jnp.asarray(v))))
+
+
+def test_cam_indexed_projection_and_fit_inverse_poly():
+    jrig, trig = _rig()
+    rng = np.random.default_rng(5)
+    X = (rng.normal(0, 1, (80, 3)) + np.array([0, 0, 2.0])).astype(np.float32)
+    ids = rng.integers(0, 3, 80)
+    for cam_idx in (1, ids):
+        uv_j = jcam.cam_world_to_img(jrig.cams, jnp.asarray(cam_idx), jnp.asarray(X))
+        uv_t = tcam.cam_world_to_img(trig.cams, torch.as_tensor(cam_idx), torch.tensor(X))
+        _close(uv_j, uv_t, rtol=1e-5, atol=1e-3)
+        rays_j = jcam.cam_img_to_world(jrig.cams, jnp.asarray(cam_idx), uv_j)
+        rays_t = tcam.cam_img_to_world(trig.cams, torch.as_tensor(cam_idx), torch.tensor(np.asarray(uv_j)))
+        _close(rays_j, rays_t)
+    pol = [-209.2, 0.0, 0.0021, -4.2e-06, 1.77e-08]
+    np.testing.assert_array_equal(tcam.fit_inverse_poly(pol, 300.0), jcam.fit_inverse_poly(pol, 300.0))

@@ -28,6 +28,26 @@ def test_no_jax_or_yaml_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+# every module the port holds so far (the tracking step, then the map
+# bootstrap) -> its counterpart in the JAX package
+MODULES = {
+    "convert": None, "models/camera": "models/camera", "models/rig": "models/rig",
+    "ops/best_match": "ops/pallas_match", "ops/brief": "ops/brief", "ops/fast": "ops/fast",
+    "ops/image": "ops/image", "ops/matching": "ops/matching", "optim/ba": "optim/ba",
+    "optim/lm": "optim/lm", "optim/problem": "optim/problem", "slam/features": "slam/features",
+    "slam/tracking_kernels": "slam/tracking_kernels", "utils/config": "utils/config",
+    "utils/geometry": "utils/geometry", "ops/ransac": "ops/ransac",
+    "slam/initializer": "slam/initializer", "io/synthetic": "io/synthetic", "io/render": "io/render",
+}
+
+
+@pytest.mark.parametrize("module", list(MODULES))
+def test_module_is_checked(module):
+    assert ROOT / "multicol_slam_tpu_torch" / f"{module}.py" in SOURCES
+    if MODULES[module] is not None:
+        assert (ROOT / "multicol_slam_tpu" / f"{MODULES[module]}.py").is_file()
+
+
 def test_kernel_source_ships_with_the_package():
     from multicol_slam_tpu_torch.ops import best_match
 
