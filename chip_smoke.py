@@ -5,21 +5,28 @@
 
 Phases, each reported on its own lines:
   1. device: the card's name and power limit; TF32 off; the best-match
-     library built from `multicol_slam_tpu_torch/csrc/best_match.cu`.
+     library built from `multicol_slam_tpu_torch/csrc/best_match.cu`, with
+     ptxas's registers, shared memory and spills of every instance.
   2. kernel: K1 (`masked_best_match_cams`) against its plain PyTorch
      version on the card, at the tracking shape (3 cameras, 400 queries,
      4096 targets, 32-byte descriptors), plain and masked, shared and
      per-camera targets, ragged sizes, one camera, ties and an all-disabled
-     case. All four outputs must be exactly equal.
+     case, and the split of the targets over blocks (T below one chunk,
+     one chunk + 1, 16 chunks + 1, Q one past a query tile, ties across
+     chunk borders). All four outputs must be exactly equal.
   3. slice: one frame of the tracking step at full Lafida width (3 cameras
      of 754x480, 400 features, 8 levels, local map of 4096 points):
      extract_features -> track_frame_fused. Checks the inlier count, that
-     K1 ran twice, and that the plain matcher gives the same answer.
+     K1 ran twice, and that the plain matcher gives the same answer; then
+     captures the arguments of the frame's two K1 launches.
   4. timing: 30 frames after warm-up, and K1 against its plain version at
-     the tracking shape.
+     the tracking shape on random inputs: device time (CUDA graph
+     replays), the eager call, the bound and the library piece (the +-1
+     bf16 torch.matmul of the descriptors: the distance alone).
   5. k2: K2 (`masked_best_match`, one camera) against its plain version,
      exactly, at Q = T = 800, ragged, without rad_q, with ties, all
-     disabled, and with 16- and 64-byte descriptors; and against K1 at C=1.
+     disabled, with 16- and 64-byte descriptors and the split cases; and
+     against K1 at C=1.
   6. bootstrap: the map bootstrap at full Lafida width on rendered frames
      of a synthetic room (bench.py:207-211): the init bank (800 features,
      FAST 5), `bootstrap` from frame 0 until it succeeds (2 K1 launches an
@@ -27,10 +34,21 @@ Phases, each reported on its own lines:
      Checks the match and survivor counts, the pose against the world's
      ground truth, and that the plain matcher gives the same answer. K2
      then runs the initializing pair's forward window match camera by
-     camera (no system path calls K2) and must equal K1's.
+     camera (no system path calls K2) and must equal K1's. The arguments
+     of the initializing attempt's two K1 launches are captured.
   7. bootstrap timing: ms per attempt, for its window match, for the
      scale calibration, and K1 / K2 against their plain versions at the
      bootstrap shape.
+  8. captured: K1 on the main path's own four launches (tracking stages 1
+     and 2, the bootstrap's forward and backward window match): P, the
+     pairs that pass the window and band; kernel == plain exactly; times.
+  9. split: K1 (tracking stage 1, bootstrap forward) and K2 at every
+     target chunk the kernel takes (64, 128, 256): exact at each, and the
+     device time of each beside the wrappers' own pick.
+Each time stands beside two bounds: the bytes at the HBM rate against the
+products of the P pairs that pass at the int8 tensor-core peak (what this
+run's data needs), and the dense one that counts every pair, as the TPU
+kernel computes them.
 Then one JSON line of kernels, and last {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero. Needs one card; no CPU fallback.
 """
@@ -45,6 +63,10 @@ C, H, W = 3, 480, 754
 Q, T, B = 400, 4096, 32
 N_FRAMES = 30
 KERNEL_REPS = 50
+# the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W)
+INT8_PEAK_OPS = 1979e12
+HBM_BYTES_PER_S = 3.35e12
+K1_ARGS = ("desc_q", "uv_q", "oct_q", "desc_t", "uv_t", "rad_t", "lvl_t")
 # 754x480 fisheye rig of the Lafida family (polynomials of the indoor set)
 POL = [-209.2, 0.0, 0.0021, -4.2e-06, 1.77e-08]
 INVPOL = [293.7, 150.0, -10.4, 28.2, 7.1, 0.06, 10.4, 0.17, -5.9, 1.18, 3.1, 0.81]
@@ -104,14 +126,114 @@ def to_device(args, dev):
     return out
 
 
+def border_ties(args, chunk):
+    """Make every chunk border a tie: target b copies target b - 1 (descriptor,
+    position, level, radius 60) for b = chunk, 2 chunk, ...; query i of each
+    camera copies target b_i - 1, so its best is 0 at b_i - 1 with a tie at
+    b_i. Returns the borders used."""
+    T = args["uv_t"].shape[1]
+    borders = list(range(chunk, T, chunk))[: args["uv_q"].shape[1]]
+    dq, dt = args["desc_q"], args["desc_t"]
+    for i, b in enumerate(borders):
+        dt[..., b, :] = dt[..., b - 1, :]
+        for k in ("uv_t", "lvl_t"):
+            args[k][:, b] = args[k][:, b - 1]
+        args["rad_t"][:, b - 1 : b + 1] = 60.0
+        dq[:, i] = dt[..., b - 1, :]
+        args["uv_q"][:, i] = args["uv_t"][:, b - 1]
+        args["oct_q"][:, i] = args["lvl_t"][:, b - 1]
+        if "rad_q" in args:
+            args["rad_q"][:, i] = 1e9
+        if "mask_q" in args:
+            args["mask_q"][:, i] = 255
+    return borders
+
+
+def check_border_ties(got, borders):
+    best, second, idx = (x.reshape(-1, x.shape[-1]).cpu().numpy() for x in got[:3])
+    for i, b in enumerate(borders):
+        if not ((idx[:, i] == b - 1) & (best[:, i] == 0) & (second[:, i] == 0)).all():
+            raise AssertionError(f"tie across the chunk border {b}: idx {idx[:, i]}, best {best[:, i]}")
+
+
+def recording_match(store):
+    """A match_fn that launches K1 and keeps clones of its arguments."""
+    import torch
+    from multicol_slam_tpu_torch.ops.best_match import masked_best_match_cams
+
+    def fn(*args, **kw):
+        a = dict(zip(K1_ARGS, args), **kw)
+        store.append({k: v.clone() if torch.is_tensor(v) else v for k, v in a.items()})
+        return masked_best_match_cams(*args, **kw)
+    return fn
+
+
+def bound_of(a, with_cols=True):
+    """The least time the card could take for K1's (or K2's) function on
+    inputs `a` (its `level_tol` 1 when not given), the larger of two times:
+    every input byte read once and every output byte written once at the
+    HBM rate, and the +-1 products of the P pairs that pass the window and
+    band (8 B bit products a pair, two with masks, as the TPU kernel runs
+    them) at the int8 tensor-core peak. `dense_bound_ms` counts the
+    products of every pair, as the TPU kernel computes them."""
+    import torch
+    from multicol_slam_tpu_torch.ops.best_match import window_mask
+
+    dq = a["desc_q"]
+    C = 1 if dq.dim() == 2 else dq.shape[0]
+    Q, nbytes = dq.shape[-2:]
+    T = a["desc_t"].shape[-2]
+    P = int(window_mask(a["uv_q"], a["oct_q"], a["uv_t"], a["rad_t"], a["lvl_t"], a.get("rad_q"),
+                        a.get("level_tol", 1.0)).sum())
+    masked = a.get("mask_q") is not None and a.get("mask_t") is not None
+    ops_pair = 2 * 8 * nbytes * (2 if masked else 1)
+    moved = sum(v.numel() * v.element_size() for v in a.values() if torch.is_tensor(v))
+    moved += C * Q * 12 + (C * T * 4 if with_cols else 0)
+    t_ops, t_bytes = P * ops_pair / INT8_PEAK_OPS, moved / HBM_BYTES_PER_S
+    by_ops = t_ops >= t_bytes
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3, bound_by="operations" if by_ops else "bytes",
+                bound_what="int8 tensor-core peak" if by_ops else "HBM", P=P, pairs=C * Q * T,
+                dense_bound_ms=max(C * Q * T * ops_pair / INT8_PEAK_OPS, t_bytes) * 1e3)
+
+
+def bound_text(b, ms):
+    """A bound of bound_of beside a kernel time `ms`, as one log fragment."""
+    return (f"bound {b['bound_ms'] * 1e3:.3f} us ({b['bound_what']}; P = {b['P']} of {b['pairs']} pairs pass), "
+            f"share {b['bound_ms'] / ms:.4f}; dense bound {b['dense_bound_ms'] * 1e3:.3f} us (every pair at the "
+            f"int8 tensor-core peak), share {b['dense_bound_ms'] / ms:.4f}")
+
+
+def bound_keys(b, ms):
+    """The bound's keys of the kernels line."""
+    return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "bound_us": b["bound_ms"] * 1e3,
+            "bound": b["bound_what"], "share_of_bound": b["bound_ms"] / ms, "P": b["P"],
+            "dense_bound_us": b["dense_bound_ms"] * 1e3, "dense_share_of_bound": b["dense_bound_ms"] / ms}
+
+
+def pm1_matmul_piece(a):
+    """torch.matmul of the +-1 bf16 unpacked descriptors, [C, Q, 8B] x
+    [C, 8B, T]: K1's distance alone (not its window, masks or reductions),
+    a library yardstick that the port never calls."""
+    import torch
+
+    w = torch.arange(8, device=a["desc_q"].device, dtype=torch.uint8)
+
+    def pm1(d):
+        return (((d[..., None] >> w) & 1).reshape(*d.shape[:-1], -1).to(torch.bfloat16) * 2 - 1)
+    A, Bt = pm1(a["desc_q"]), pm1(a["desc_t"]).transpose(-1, -2)
+    return lambda: torch.matmul(A, Bt)
+
+
 def phase_kernel(dev):
     """Kernel == plain on every case, exactly. Returns the largest |error|."""
     import torch
     from multicol_slam_tpu_torch.ops.best_match import (
-        masked_best_match_cams, masked_best_match_cams_plain,
+        masked_best_match_cams, masked_best_match_cams_plain, target_chunk,
     )
 
     rng = np.random.default_rng(1)
+    ties = match_problem(rng, C, Q, T, False, False)
+    borders = border_ties(ties, target_chunk(C, Q, T))
     cases = {
         "slice shared desc_t": match_problem(rng, C, Q, T, True, False),
         "slice shared masked": match_problem(rng, C, Q, T, True, True),
@@ -124,6 +246,11 @@ def phase_kernel(dev):
         "all disabled": match_problem(rng, C, Q, T, True, False, frac_t=0.0),
         "16-byte descriptors": match_problem(rng, C, Q, T, True, True, B=16),
         "64-byte descriptors": match_problem(rng, C, Q, T, False, False, B=64),
+        "T=50 < one chunk": match_problem(rng, C, Q, 50, True, False),
+        "T=65 = chunk + 1, masked": match_problem(rng, C, Q, 65, False, True),
+        "T=4097 = 16 chunks + 1": match_problem(rng, C, Q, 4097, True, False),
+        "Q=65 = query tile + 1": match_problem(rng, C, 65, T, False, False),
+        "ties across chunk borders": ties,
     }
     worst = 0.0
     for name, args in cases.items():
@@ -139,8 +266,11 @@ def phase_kernel(dev):
         n_match = int((got[2] >= 0).sum())
         if (n_match == 0) != (name == "all disabled"):
             raise AssertionError(f"'{name}': {n_match} queries matched")
+        if args is ties:
+            check_border_ties(got, borders)
+        cq, tq = a["desc_q"].shape[:2], a["desc_t"].shape[-2]
         log(f"kernel: '{name}' exactly equal (tolerance 0) on best/second/idx/col_best "
-            f"({n_match} queries matched)")
+            f"({n_match} queries matched; chunk {target_chunk(cq[0], cq[1], tq)})")
     return worst
 
 
@@ -232,7 +362,11 @@ def phase_slice(dev, state):
         raise AssertionError(f"plain matcher pose differs by {dpose}")
     log(f"slice: kernel launches in one frame = {launches}; plain matcher: same assignment "
         f"and inliers, pose within {dpose:.2e}")
-    return launches, frame
+    captured = []
+    frame(recording_match(captured))
+    if len(captured) != 2:
+        raise AssertionError(f"captured {len(captured)} K1 launches of one frame, expected 2")
+    return launches, frame, captured
 
 
 def time_cuda(fn, reps):
@@ -279,15 +413,14 @@ def phase_timing(dev, state, frame, card):
     plain_trk = time_cuda(lambda: frame(masked_best_match_cams_plain), 5)
     log(f"timing: one frame with the plain matcher {plain_trk:.3f} ms (CUDA events) [{card}]")
     a = to_device(match_problem(np.random.default_rng(2), C, Q, T, True, False), dev)
-    kern = lambda: masked_best_match_cams(**a)
-    plain = lambda: masked_best_match_cams_plain(**a)
-    time_cuda(kern, 5), time_cuda(plain, 5)
-    ms = [time_cuda(f, KERNEL_REPS) for f in (plain, kern, kern, plain)]
-    plain_ms, kern_ms = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
-    log(f"timing: best-match at C={C} Q={Q} T={T} B={B}: kernel {kern_ms * 1e3:.2f} us, "
-        f"plain {plain_ms * 1e3:.2f} us (runs plain/kernel/kernel/plain: "
-        f"{', '.join(f'{x * 1e3:.2f}' for x in ms)} us) [{card}]")
-    return kern_ms, plain_ms
+    t = kernel_vs_plain(lambda: masked_best_match_cams(**a), lambda: masked_best_match_cams_plain(**a))
+    piece_ms = library_ms(pm1_matmul_piece(a))
+    bound = bound_of(a)
+    log(f"timing: K1's grids at C={C} Q={Q} T={T} (profiler, device us a call): "
+        f"{profile_grids(lambda: masked_best_match_cams(**a))} [{card}]")
+    log(f"timing: K1 at C={C} Q={Q} T={T} B={B} (random inputs): {us_line(t)}; {bound_text(bound, t['ms'])}; "
+        f"library piece (+-1 bf16 torch.matmul, the distance alone) {piece_ms * 1e3:.2f} us [{card}]")
+    return dict(t, piece_ms=piece_ms, bound=bound)
 
 
 # the map bootstrap (system.py:226-240, 390-445) on bench.py:207-211's world
@@ -339,10 +472,12 @@ def phase_k2(dev):
     largest |error|."""
     import torch
     from multicol_slam_tpu_torch.ops.best_match import (
-        masked_best_match, masked_best_match_cams, masked_best_match_plain,
+        masked_best_match, masked_best_match_cams, masked_best_match_plain, target_chunk,
     )
 
     rng = np.random.default_rng(3)
+    ties = k2_problem(rng, 800, 800)
+    borders = border_ties({k: v[None] for k, v in ties.items()}, target_chunk(1, 800, 800))
     cases = {
         "Q=T=800": k2_problem(rng, 800, 800),
         "ragged Q=37 T=1001": k2_problem(rng, 37, 1001),
@@ -351,6 +486,10 @@ def phase_k2(dev):
         "all disabled": k2_problem(rng, 800, 800, frac_t=0.0),
         "16-byte descriptors": k2_problem(rng, 800, 800, B=16),
         "64-byte descriptors": k2_problem(rng, 800, 800, B=64),
+        "T=50 < one chunk": k2_problem(rng, 800, 50),
+        "T=65 = chunk + 1": k2_problem(rng, 800, 65),
+        "Q=65 = query tile + 1": k2_problem(rng, 65, 800),
+        "ties across chunk borders": ties,
     }
     worst = 0.0
     for name, args in cases.items():
@@ -371,8 +510,10 @@ def phase_k2(dev):
             raise AssertionError(f"K2 '{name}': {n_match} queries matched")
         if name == "ties" and int(((got[0] == got[1]) & (got[2] >= 0)).sum()) == 0:
             raise AssertionError("K2 'ties': no tie at the minimum")
+        if args is ties:
+            check_border_ties(got, borders)
         log(f"k2: '{name}' exactly equal (tolerance 0) on best/second/idx, and equal to K1 at C=1 "
-            f"({n_match} queries matched)")
+            f"({n_match} queries matched; chunk {target_chunk(1, *a['uv_q'].shape[:1], a['uv_t'].shape[0])})")
     return worst
 
 
@@ -400,7 +541,7 @@ def build_bootstrap(dev):
     t0 = time.perf_counter()
     world = make_world(n_points=3000, n_frames=BOOT_FRAMES, n_cams=C, n_feats=400, noise_px=0.0,
                        trajectory="circle_noyaw", radius=3.0, seed=12, period=400, landmarks="room",
-                       max_vis_dist=12.0, rig=rig_on(None))
+                       max_vis_dist=12.0, rig=rig_on("cpu"))
     images = [render_frame(world, t) for t in range(BOOT_FRAMES)]
     log(f"bootstrap: rendered {BOOT_FRAMES} frames of {C}x{W}x{H} on the host in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -508,6 +649,10 @@ def phase_bootstrap(dev, boot):
             or not np.array_equal(res_p.feat2, res.feat2) or dM > 1e-6:
         raise AssertionError(f"plain matcher gives another bootstrap (Mt2 differs by {dM})")
     log(f"bootstrap: plain matcher: same match_idx, same {res.n_matches} survivors, Mt2 within {dM:.2e}")
+    captured = []
+    bootstrap(rig, ref, cur, generator=generator(t), match_fn=recording_match(captured))
+    if len(captured) != 2:
+        raise AssertionError(f"captured {len(captured)} K1 launches of one attempt, expected 2")
 
     # K2 on the initializing pair: the forward window match, camera by camera
     zeros = torch.zeros(ref.valid.shape[1], device=dev)
@@ -532,7 +677,7 @@ def phase_bootstrap(dev, boot):
     log(f"bootstrap: K2 on the initializing pair, camera by camera (Q=T={BOOT_FEATS}): equal to K1's "
         f"forward window match; K2 launches {k2_drive}")
     return dict(ref=ref, cur=cur, res=res, t=t, generator=generator, fwd=fwd, stack=stack,
-                launches=launches, k2_drive=k2_drive)
+                launches=launches, k2_drive=k2_drive, captured=captured)
 
 
 def host_ms(fn, reps):
@@ -549,11 +694,76 @@ def host_ms(fn, reps):
     return float(np.mean(out)), out
 
 
+GRAPH_CALLS = 10   # calls captured in one CUDA graph; KERNEL_REPS / GRAPH_CALLS replays
+
+
+def graph_of(fn):
+    """A CUDA graph of GRAPH_CALLS calls of fn (warmed up on a side stream)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    return graph
+
+
+def device_ms(graph):
+    """Device ms per call: KERNEL_REPS calls replayed from a graph (no host
+    dispatch in the loop), CUDA events around them."""
+    return time_cuda(graph.replay, KERNEL_REPS // GRAPH_CALLS) / GRAPH_CALLS
+
+
+def library_ms(fn):
+    return device_ms(graph_of(fn))
+
+
 def kernel_vs_plain(kern, plain):
-    """Kernel and plain ms, measured plain/kernel/kernel/plain in one call."""
+    """Kernel and plain times in one call, in turns plain/kernel/kernel/plain,
+    each the mean of KERNEL_REPS calls: `ms` / `plain_ms` replayed from CUDA
+    graphs (the device's time), `call_ms` / `plain_call_ms` called eagerly
+    (host dispatch included, as the main path pays it)."""
+    gk, gp = graph_of(kern), graph_of(plain)
+    ms = [device_ms(g) for g in (gp, gk, gk, gp)]
     time_cuda(kern, 5), time_cuda(plain, 5)
-    ms = [time_cuda(f, KERNEL_REPS) for f in (plain, kern, kern, plain)]
-    return (ms[1] + ms[2]) / 2, (ms[0] + ms[3]) / 2, ms
+    call = [time_cuda(f, KERNEL_REPS) for f in (plain, kern, kern, plain)]
+    return dict(ms=(ms[1] + ms[2]) / 2, plain_ms=(ms[0] + ms[3]) / 2, runs=ms,
+                call_ms=(call[1] + call[2]) / 2, plain_call_ms=(call[0] + call[3]) / 2, call_runs=call)
+
+
+def profile_grids(fn, calls=20):
+    """Device time of each grid a call of fn launches (torch.profiler over
+    `calls` calls): the kernel names and us per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        if (e.key.startswith("void") or "kernel" in e.key) and us > 0:
+            kname = e.key.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+            rows.append(f"{kname[-60:]} {us / calls:.2f} us x {e.count // calls}")
+    return "; ".join(rows) if rows else "not measured (no device time in the trace)"
+
+
+def us_line(t):
+    """The times of kernel_vs_plain as one log fragment, in us."""
+    f = lambda xs: ", ".join(f"{x * 1e3:.2f}" for x in xs)  # noqa: E731
+    return (f"kernel {t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us (graph replays, "
+            f"plain/kernel/kernel/plain: {f(t['runs'])} us); called eagerly: kernel {t['call_ms'] * 1e3:.2f} us, "
+            f"plain {t['plain_call_ms'] * 1e3:.2f} us ({f(t['call_runs'])} us)")
 
 
 def phase_bootstrap_timing(dev, boot, out, card):
@@ -576,16 +786,87 @@ def phase_bootstrap_timing(dev, boot, out, card):
     log(f"timing: calibrate_metric_scale {calib_ms:.3f} ms (96 + 64 scales, {len(res.points_cam)} points; "
         f"runs {', '.join(f'{x:.3f}' for x in runs)}) [{card}]")
     a = out["stack"]
-    k1_ms, k1_plain, ms = kernel_vs_plain(lambda: masked_best_match_cams(**a, level_tol=1e9),
-                                          lambda: masked_best_match_cams_plain(**a, level_tol=1e9))
+    k1 = kernel_vs_plain(lambda: masked_best_match_cams(**a, level_tol=1e9),
+                         lambda: masked_best_match_cams_plain(**a, level_tol=1e9))
+    k1_piece = library_ms(pm1_matmul_piece(a))
+    k1_bound = bound_of(a)
     log(f"timing: K1 at the bootstrap shape C={C} Q=T={BOOT_FEATS} B={B} radius 100 level_tol 1e9: "
-        f"kernel {k1_ms * 1e3:.2f} us, plain {k1_plain * 1e3:.2f} us (runs plain/kernel/kernel/plain: "
-        f"{', '.join(f'{x * 1e3:.2f}' for x in ms)} us) [{card}]")
+        f"{us_line(k1)}; {bound_text(k1_bound, k1['ms'])}; library piece {k1_piece * 1e3:.2f} us [{card}]")
     a2 = out["fwd"][0]
-    k2_ms, k2_plain, ms = kernel_vs_plain(lambda: masked_best_match(**a2), lambda: masked_best_match_plain(**a2))
-    log(f"timing: K2 at Q=T={BOOT_FEATS} B={B}: kernel {k2_ms * 1e3:.2f} us, plain {k2_plain * 1e3:.2f} us "
-        f"(runs plain/kernel/kernel/plain: {', '.join(f'{x * 1e3:.2f}' for x in ms)} us) [{card}]")
-    return dict(k1_ms=k1_ms, k1_plain=k1_plain, k2_ms=k2_ms, k2_plain=k2_plain)
+    k2 = kernel_vs_plain(lambda: masked_best_match(**a2), lambda: masked_best_match_plain(**a2))
+    k2_piece = library_ms(pm1_matmul_piece(a2))
+    k2_bound = bound_of(a2, with_cols=False)
+    log(f"timing: K2 at Q=T={BOOT_FEATS} B={B} (camera 0 of the initializing pair's forward match): "
+        f"{us_line(k2)}; {bound_text(k2_bound, k2['ms'])}; library piece {k2_piece * 1e3:.2f} us [{card}]")
+    return dict(k1=k1, k1_piece_ms=k1_piece, k1_bound=k1_bound, k2=k2, k2_piece_ms=k2_piece, k2_bound=k2_bound)
+
+
+def phase_captured(dev, launches, card):
+    """K1 on the main path's own launches: P, kernel == plain exactly, and
+    kernel / plain / library-piece times on those inputs."""
+    import torch
+    from multicol_slam_tpu_torch.ops.best_match import (
+        masked_best_match_cams, masked_best_match_cams_plain, target_chunk,
+    )
+
+    rows = []
+    for name, a in launches:
+        got = masked_best_match_cams(**a)
+        ref = masked_best_match_cams_plain(**a)
+        torch.cuda.synchronize()
+        for label, x, y in zip(("best", "second", "idx", "col_best"), got, ref):
+            if not torch.equal(x, y):
+                raise AssertionError(f"kernel != plain on the captured '{name}': {label} differs")
+        t = kernel_vs_plain(lambda: masked_best_match_cams(**a), lambda: masked_best_match_cams_plain(**a))
+        piece_ms = library_ms(pm1_matmul_piece(a))
+        bound = bound_of(a)
+        Cc, Qc = a["desc_q"].shape[:2]
+        Tc = a["desc_t"].shape[-2]
+        log(f"captured: '{name}' C={Cc} Q={Qc} T={Tc} level_tol {a['level_tol']:g}: P = {bound['P']} of "
+            f"{bound['pairs']} pairs pass ({100 * bound['P'] / bound['pairs']:.3f} %); kernel == plain exactly; "
+            f"{us_line(t)}; {bound_text(bound, t['ms'])}; library piece {piece_ms * 1e3:.2f} us [{card}]")
+        rows.append(dict(launch=name, C=Cc, Q=Qc, T=Tc, chunk=target_chunk(Cc, Qc, Tc), ms=t["ms"],
+                         plain_ms=t["plain_ms"], call_ms=t["call_ms"], plain_call_ms=t["plain_call_ms"],
+                         library_piece_ms=piece_ms, **bound_keys(bound, t["ms"])))
+    return rows
+
+
+CHUNKS = (64, 128, 256)   # the target chunks the kernel takes
+
+
+def phase_split(cases, card):
+    """K1 and K2 at every chunk the kernel takes, on the main path's own
+    inputs: exactly equal to the plain version at each chunk, and the
+    device time of each (CUDA-graph replays). The chunk is forced by
+    replacing the wrappers' `target_chunk` for the phase; `chosen` marks
+    the wrappers' own pick."""
+    import torch
+    import multicol_slam_tpu_torch.ops.best_match as bm
+
+    own = bm.target_chunk
+    rows = []
+    try:
+        for name, kern, plain, a in cases:
+            Cs = 1 if a["desc_q"].dim() == 2 else a["desc_q"].shape[0]
+            Qs, Ts = a["desc_q"].shape[-2], a["desc_t"].shape[-2]
+            chosen = own(Cs, Qs, Ts)
+            ref = plain(**a)
+            times = {}
+            for chunk in CHUNKS:
+                bm.target_chunk = lambda *_, chunk=chunk: chunk
+                got = kern(**a)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+                    raise AssertionError(f"split: '{name}' at chunk {chunk} != plain")
+                times[chunk] = device_ms(graph_of(lambda: kern(**a)))
+            log(f"split: '{name}' C={Cs} Q={Qs} T={Ts}: exactly equal to plain at chunks {list(CHUNKS)}; "
+                + ", ".join(f"chunk {c} ({-(-Qs // bm.QUERY_TILE) * -(-Ts // c) * Cs} blocks) "
+                            f"{ms * 1e3:.2f} us{' (chosen)' if c == chosen else ''}" for c, ms in times.items())
+                + f" [{card}]")
+            rows.append({"launch": name, "chosen": chosen, "ms_by_chunk": {str(c): ms for c, ms in times.items()}})
+    finally:
+        bm.target_chunk = own
+    return rows
 
 
 def main():
@@ -594,7 +875,10 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from multicol_slam_tpu_torch.ops.best_match import KERNEL
+    from multicol_slam_tpu_torch.ops.best_match import (
+        BODY, KERNEL, QUERY_TILE, masked_best_match, masked_best_match_cams, masked_best_match_cams_plain,
+        masked_best_match_plain, target_chunk,
+    )
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -604,20 +888,34 @@ def main():
     log(f"device: {name}; nvidia-smi: {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     lib = KERNEL.build()
-    log(f"device: built {lib.name} in {time.perf_counter() - t0:.2f} s")
+    log(f"device: built {lib.name} in {time.perf_counter() - t0:.2f} s; body: {BODY}")
     for line in KERNEL.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"device: ptxas {line.strip()}")
 
     max_err = phase_kernel(dev)
     state = build_slice(dev)
-    launches, frame = phase_slice(dev, state)
-    kern_ms, plain_ms = phase_timing(dev, state, frame, card)
+    launches, frame, cap_track = phase_slice(dev, state)
+    tk = phase_timing(dev, state, frame, card)
     k2_err = phase_k2(dev)
     boot = build_bootstrap(dev)
     out = phase_bootstrap(dev, boot)
     bt = phase_bootstrap_timing(dev, boot, out, card)
+    captured = phase_captured(dev, [("tracking stage 1", cap_track[0]), ("tracking stage 2", cap_track[1]),
+                                    ("bootstrap forward", out["captured"][0]),
+                                    ("bootstrap backward", out["captured"][1])], card)
+    sweep = phase_split([
+        ("K1 tracking stage 1", masked_best_match_cams, masked_best_match_cams_plain, cap_track[0]),
+        ("K1 bootstrap forward", masked_best_match_cams, masked_best_match_cams_plain, out["captured"][0]),
+        ("K2 Q=T=800", masked_best_match, masked_best_match_plain, out["fwd"][0]),
+    ], card)
 
+    def split(Cs, Qs, Ts):
+        chunk = target_chunk(Cs, Qs, Ts)
+        return {"query_tile": QUERY_TILE, "chunk": chunk,
+                "blocks": -(-Qs // QUERY_TILE) * -(-Ts // chunk) * Cs}
+
+    piece = "torch.matmul of +-1 bf16 descriptors, the distance alone"
     log(json.dumps({"kernels": [{
         "name": "masked_best_match_cams",
         "route": "cuda",
@@ -626,10 +924,22 @@ def main():
         "launches": launches + out["launches"],
         "launches_by_path": {"tracking": launches, "bootstrap": out["launches"]},
         "max_abs_err": max_err,
-        "ms": kern_ms,
-        "plain_ms": plain_ms,
-        "bootstrap_shape_ms": bt["k1_ms"],
-        "bootstrap_shape_plain_ms": bt["k1_plain"],
+        "ms": tk["ms"],
+        "plain_ms": tk["plain_ms"],
+        "call_ms": tk["call_ms"],
+        "plain_call_ms": tk["plain_call_ms"],
+        "library_ms": None,
+        **bound_keys(tk["bound"], tk["ms"]),
+        "library_piece_ms": tk["piece_ms"],
+        "library_piece": piece,
+        "split": split(C, Q, T),
+        "body": BODY,
+        "bootstrap_shape": dict(ms=bt["k1"]["ms"], plain_ms=bt["k1"]["plain_ms"], call_ms=bt["k1"]["call_ms"],
+                                plain_call_ms=bt["k1"]["plain_call_ms"], library_piece_ms=bt["k1_piece_ms"],
+                                split=split(C, BOOT_FEATS, BOOT_FEATS),
+                                **bound_keys(bt["k1_bound"], bt["k1"]["ms"])),
+        "captured": captured,
+        "split_sweep": [r for r in sweep if r["launch"].startswith("K1")],
     }, {
         "name": "masked_best_match",
         "route": "cuda",
@@ -638,8 +948,17 @@ def main():
         "launches": out["k2_drive"],
         "launches_by_path": {"tracking": 0, "bootstrap": 0, "k2_window_match_by_camera": out["k2_drive"]},
         "max_abs_err": k2_err,
-        "ms": bt["k2_ms"],
-        "plain_ms": bt["k2_plain"],
+        "ms": bt["k2"]["ms"],
+        "plain_ms": bt["k2"]["plain_ms"],
+        "call_ms": bt["k2"]["call_ms"],
+        "plain_call_ms": bt["k2"]["plain_call_ms"],
+        "library_ms": None,
+        **bound_keys(bt["k2_bound"], bt["k2"]["ms"]),
+        "library_piece_ms": bt["k2_piece_ms"],
+        "library_piece": piece,
+        "split": split(1, BOOT_FEATS, BOOT_FEATS),
+        "body": BODY,
+        "split_sweep": [r for r in sweep if r["launch"].startswith("K2")],
     }]}))
     log(f"card: {card}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

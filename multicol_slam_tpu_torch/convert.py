@@ -3,13 +3,15 @@
 The system learns nothing, so its state is the rig calibration, the local
 map, a frame's features and, for tests and benchmarks, the synthetic world.
 Each function takes the arrays the JAX package holds (`np.asarray` of its
-fields) and returns the port's objects on `device`.
+fields) and returns the port's objects on `device`: the card unless the
+caller passes device="cpu".
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from multicol_slam_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from multicol_slam_tpu_torch.io.synthetic import SyntheticWorld
 from multicol_slam_tpu_torch.models.camera import OmniCamera
 from multicol_slam_tpu_torch.models.rig import MultiCamRig
@@ -21,9 +23,10 @@ def _t(a, dtype, device):
     return torch.tensor(np.asarray(a, dtype), device=device)
 
 
-def rig_from_numpy(pol, invpol, cde, pp, wh, mc_cayley, device=None) -> MultiCamRig:
+def rig_from_numpy(pol, invpol, cde, pp, wh, mc_cayley, device=DEFAULT_DEVICE) -> MultiCamRig:
     """OmniCamera fields [C, MAX_POL], [C, MAX_INVPOL], [C, 3], [C, 2], [C, 2]
     and extrinsics [C, 6] -> MultiCamRig."""
+    device = resolve_device(device)
     f32 = np.float32
     cams = OmniCamera(_t(pol, f32, device), _t(invpol, f32, device), _t(cde, f32, device),
                       _t(pp, f32, device), _t(wh, f32, device))
@@ -31,7 +34,8 @@ def rig_from_numpy(pol, invpol, cde, pp, wh, mc_cayley, device=None) -> MultiCam
 
 
 def local_points_from_numpy(X, desc, min_dist, max_dist, valid, normal=None, dmask=None,
-                            device=None) -> LocalPoints:
+                            device=DEFAULT_DEVICE) -> LocalPoints:
+    device = resolve_device(device)
     f32 = np.float32
     return LocalPoints(
         X=_t(X, f32, device), desc=_t(desc, np.uint8, device),
@@ -43,7 +47,8 @@ def local_points_from_numpy(X, desc, min_dist, max_dist, valid, normal=None, dma
 
 
 def frame_features_from_numpy(uv, response, octave, angle, rays, desc, dmask, valid,
-                              device=None) -> FrameFeatures:
+                              device=DEFAULT_DEVICE) -> FrameFeatures:
+    device = resolve_device(device)
     f32 = np.float32
     return FrameFeatures(
         uv=_t(uv, f32, device), response=_t(response, f32, device),

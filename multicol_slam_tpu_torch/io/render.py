@@ -3,8 +3,9 @@ and `render_frame` of `multicol_slam_tpu/io/render.py`).
 
 Each landmark visible at the frame's ground-truth pose is stamped as a small
 deterministic texture patch, so FAST finds it and its BRIEF descriptor is
-distinctive. Rendering is host work: numpy, with the projection through the
-port's camera model on the CPU, whatever device the world's rig is on.
+distinctive. Rendering is a host-side fixture: numpy, with the projection
+through the port's camera model on the CPU (device="cpu", passed
+explicitly), whatever device the world's rig is on.
 """
 from __future__ import annotations
 
@@ -57,13 +58,13 @@ def render_frame(world: SyntheticWorld, t: int, rng_seed: int = 1234) -> np.ndar
     C = Mc.shape[0]
     W, H = (int(x) for x in cams.wh[0].numpy())
     textures = _textures(len(world.points), np.random.default_rng(rng_seed))
-    Mt = cayley_to_hom(torch.tensor(world.poses[t], dtype=torch.float32)).numpy()
+    Mt = cayley_to_hom(torch.tensor(world.poses[t], dtype=torch.float32, device="cpu")).numpy()
     out = np.full((C, H, W), 20, np.uint8)  # dark background
     half = PATCH // 2
     for c in range(C):
         Tinv = np.linalg.inv(Mt @ Mc[c])
         Xc = world.points @ Tinv[:3, :3].T + Tinv[:3, 3]
-        uv = cam_world_to_img(cams, c, torch.tensor(Xc, dtype=torch.float32))
+        uv = cam_world_to_img(cams, c, torch.tensor(Xc, dtype=torch.float32, device="cpu"))
         ok = Xc[:, 2] > 0
         ok &= in_mirror_mask(cams, c, uv).numpy()
         # honor the world's visibility budget

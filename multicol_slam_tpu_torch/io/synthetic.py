@@ -3,8 +3,10 @@ binary descriptors (port of `multicol_slam_tpu/io/synthetic.py`, without
 `synthesize_features` and `SyntheticWorld.frame_features`).
 
 Everything here is numpy on the host except the rig, which is the port's
-`MultiCamRig` (on the CPU unless moved). For the same arguments the arrays
-equal the reference's exactly: the same generator draws in the same order.
+`MultiCamRig`. `make_world` is a host-side fixture: the rig it builds lies
+on the CPU (device="cpu", passed explicitly). For the same arguments the
+arrays equal the reference's exactly: the same generator draws in the same
+order.
 """
 from __future__ import annotations
 
@@ -14,14 +16,16 @@ from typing import Optional
 import numpy as np
 import torch
 
+from multicol_slam_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from multicol_slam_tpu_torch.models.camera import OmniCamera, fit_inverse_poly
 from multicol_slam_tpu_torch.models.rig import MultiCamRig
 
 
-def make_synthetic_rig(n_cams: int = 3, w: int = 256, h: int = 192) -> MultiCamRig:
-    """Mild-fisheye rig with cameras offset and rotated from the body frame.
-    The inverse polynomial is fit from the forward one, so projection and
-    unprojection round-trip."""
+def make_synthetic_rig(n_cams: int = 3, w: int = 256, h: int = 192, device=DEFAULT_DEVICE) -> MultiCamRig:
+    """Mild-fisheye rig with cameras offset and rotated from the body frame,
+    on `device`. The inverse polynomial is fit from the forward one, so
+    projection and unprojection round-trip."""
+    device = resolve_device(device)
     # z(rho) = 60 - rho^2/60: horizon (theta=0) at rho=60 px, FOV ~145 deg
     pol = [-60.0, 0.0, 1.0 / 60.0, 0.0, 0.0]
     invpol = fit_inverse_poly(pol, rho_max=0.95 * (h / 2.0 + 22.0))
@@ -31,13 +35,14 @@ def make_synthetic_rig(n_cams: int = 3, w: int = 256, h: int = 192) -> MultiCamR
         [[1.0, 0.0, 0.0]] * n_cams,
         [[w / 2.0, h / 2.0]] * n_cams,
         [[w, h]] * n_cams,
+        device=device,
     )
     mc = np.zeros((n_cams, 6), np.float32)
     for c in range(n_cams):
         ang = 2.0 * np.pi * c / max(n_cams, 1)
         mc[c, :3] = [0.0, 0.15 * np.sin(ang), 0.1 * np.cos(ang)]  # mild rotations
         mc[c, 3:] = [0.15 * np.cos(ang), 0.15 * np.sin(ang), 0.0]
-    return MultiCamRig.from_cayley(cams, torch.from_numpy(mc))
+    return MultiCamRig.from_cayley(cams, torch.from_numpy(mc).to(device))
 
 
 @dataclasses.dataclass
@@ -70,13 +75,14 @@ def make_world(
 ) -> SyntheticWorld:
     """`period`: frames per lap of a circular trajectory (default n_frames,
     one lap). `rig`: use this rig instead of the mild-fisheye synthetic one
-    (e.g. a 754x480 Lafida-shaped rig). `landmarks`: 'ring', 'room' (walls
+    (e.g. a 754x480 Lafida-shaped rig), which is built on the CPU
+    (device="cpu": the world is host data). `landmarks`: 'ring', 'room' (walls
     and a ceiling, for rigs with an upward-looking camera), 'corridor',
     'pathroom' or 'path'. `trajectory`: 'circle', 'circle_noyaw', 'line' or
     'outback'."""
     rng = np.random.default_rng(seed)
     if rig is None:
-        rig = make_synthetic_rig(n_cams)
+        rig = make_synthetic_rig(n_cams, device="cpu")
     ang = rng.uniform(0, 2 * np.pi, n_points)
     if landmarks == "room":
         # indoor room around the trajectory: cylindrical wall band plus a

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from multicol_slam_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from multicol_slam_tpu_torch.utils.geometry import horner
 
 MAX_POL = 8
@@ -37,9 +38,10 @@ class OmniCamera(nn.Module):
 
     @classmethod
     def from_params(cls, pol_list, invpol_list, cde_list, pp_list, wh_list,
-                    device=None, dtype=torch.float32):
+                    device=DEFAULT_DEVICE, dtype=torch.float32):
         """Build from per-camera lists of coefficients (shorter polynomials
-        are zero-padded)."""
+        are zero-padded), on the card unless `device` says otherwise."""
+        device = resolve_device(device)
         C = len(pol_list)
         pol = torch.zeros((C, MAX_POL), dtype=torch.float64)
         invpol = torch.zeros((C, MAX_INVPOL), dtype=torch.float64)

@@ -21,12 +21,16 @@ level band |oct_q - lvl_t| <= level_tol, it returns
 with the distance popc(a ^ b), or (popc(x & m_q) + popc(x & m_t)) / 2 when
 mdBRIEF masks are given (callers then halve their thresholds).
 
-On this card the kernel reads 32 B per target per query tile and does 8
-popcounts per pair; at the tracking shape (C=3, Q=400, T=4096) that is
-4.9 M pairs a stage on 12 blocks of 132 SMs, so it is latency-bound: each
-warp walks every target in sequence. The design keeps every query's state
-in registers and stages target tiles in shared memory; splitting T across
-blocks is what would fill the card.
+What bounds it on this card: the dense +-1 products, as the TPU kernel
+computes them, are 2.52 G operations at the tracking shape (C=3, Q=400,
+T=4096), 1.27 us at the int8 tensor-core peak; the bytes take a tenth of
+that. So the kernel is a latency problem, and its design (the source's
+note) splits the targets over a grid of (query tiles of QUERY_TILE,
+chunks of `target_chunk` targets, cameras), stages target tiles with the
+bulk async copy, computes the distances on the tensor cores (b1 AND+POPC
+products) and merges the blocks' partials exactly, in chunk order, in the
+last block of each query tile. `masked_best_match_cams_split_plain` is that
+split and merge in PyTorch, for the tests.
 
 Each wrapper runs its plain version for CPU tensors only. For CUDA tensors
 it launches its kernel or raises. The library is built with nvcc for sm_90a
@@ -48,6 +52,10 @@ import torch
 from multicol_slam_tpu_torch.ops.matching import hamming_matrix, hamming_matrix_masked
 
 BIG = 1e9
+QUERY_TILE = 64    # queries of a block: 4 warps x the 16 rows of an mma tile
+TARGET_TILE = 64   # targets of a shared-memory stage
+MIN_BLOCKS = 528   # four blocks for each of the H100's 132 SMs
+BODY = "tensor cores: mma.sync m16n8k256 b1 AND+POPC, 2 products a pair (4 with masks)"
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "best_match.cu"
 BUILD_DIR = _PKG / "build"
@@ -133,9 +141,20 @@ class BestMatchKernel:
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # K1, masked_best_match_cams
-KERNEL = BestMatchKernel("mcslam_best_match", [_P] * 7 + [_I] + [_P] * 3 + [_I] * 4 + [_F] + [_P] * 5)
+KERNEL = BestMatchKernel("mcslam_best_match", [_P] * 7 + [_I] + [_P] * 3 + [_I] * 4 + [_F] + [_I] + [_P] * 6)
 # K2, masked_best_match
-KERNEL_SINGLE = BestMatchKernel("mcslam_best_match_single", [_P] * 8 + [_I] * 3 + [_F] + [_P] * 4)
+KERNEL_SINGLE = BestMatchKernel("mcslam_best_match_single", [_P] * 8 + [_I] * 3 + [_F] + [_I] + [_P] * 5)
+
+
+def window_mask(uv_q, oct_q, uv_t, rad_t, lvl_t, rad_q=None, level_tol: float = 1.0) -> torch.Tensor:
+    """[C, Q, T] bool: the pairs that pass the window and the level band."""
+    if rad_q is None:
+        rad_q = torch.full(uv_q.shape[:-1], BIG, dtype=torch.float32, device=uv_q.device)
+    rad = torch.minimum(rad_q[..., :, None], rad_t[..., None, :])
+    du = torch.abs(uv_q[..., :, None, 0] - uv_t[..., None, :, 0])
+    dv = torch.abs(uv_q[..., :, None, 1] - uv_t[..., None, :, 1])
+    dl = torch.abs(oct_q.to(torch.float32)[..., :, None] - lvl_t.to(torch.float32)[..., None, :])
+    return (du <= rad) & (dv <= rad) & (dl <= level_tol)
 
 
 def masked_best_match_cams_plain(
@@ -158,19 +177,75 @@ def masked_best_match_cams_plain(
         ham = hamming_matrix_masked(desc_q, mask_q, desc_t, mask_t)
     else:
         ham = hamming_matrix(desc_q, desc_t)
-    if rad_q is None:
-        rad_q = torch.full(desc_q.shape[:2], BIG, dtype=torch.float32, device=desc_q.device)
-    rad = torch.minimum(rad_q[..., :, None], rad_t[..., None, :])
-    du = torch.abs(uv_q[..., :, None, 0] - uv_t[..., None, :, 0])
-    dv = torch.abs(uv_q[..., :, None, 1] - uv_t[..., None, :, 1])
-    dl = torch.abs(oct_q.to(torch.float32)[..., :, None] - lvl_t.to(torch.float32)[..., None, :])
-    mask = (du <= rad) & (dv <= rad) & (dl <= level_tol)
+    mask = window_mask(uv_q, oct_q, uv_t, rad_t, lvl_t, rad_q, level_tol)
     d = torch.where(mask, ham, torch.full_like(ham, BIG))
     idx = torch.argmin(d, dim=-1, keepdim=True)                 # first minimum
     best = torch.gather(d, -1, idx)[..., 0]
     second = torch.scatter(d, -1, idx, BIG).amin(dim=-1)
     idx = torch.where(best < BIG, idx[..., 0], -1).to(torch.int32)
     return best, second, idx, d.amin(dim=-2)
+
+
+def target_chunk(C: int, Q: int, T: int) -> int:
+    """Targets one block of the kernel covers: the largest of 256 and 128
+    that still gives MIN_BLOCKS blocks over (query tiles, target chunks,
+    cameras), else one stage tile."""
+    q_tiles = -(-Q // QUERY_TILE)
+    for chunk in (256, 128):
+        if C * q_tiles * -(-T // chunk) >= MIN_BLOCKS:
+            return chunk
+    return TARGET_TILE
+
+
+def masked_best_match_cams_split_plain(
+    desc_q: torch.Tensor,
+    uv_q: torch.Tensor,
+    oct_q: torch.Tensor,
+    desc_t: torch.Tensor,
+    uv_t: torch.Tensor,
+    rad_t: torch.Tensor,
+    lvl_t: torch.Tensor,
+    rad_q: Optional[torch.Tensor] = None,
+    mask_q: Optional[torch.Tensor] = None,
+    mask_t: Optional[torch.Tensor] = None,
+    level_tol: float = 1.0,
+    chunk: int = 256,
+) -> Outputs:
+    """The plain version computed per chunk of `chunk` targets and merged in
+    increasing chunk order, as the kernel merges its blocks' partials (the
+    TPU kernel's tile merge, pallas_match.py:282-284):
+
+        best = min(r1, t1); second = min(max(r1, t1), min(r2, t2))
+        idx = idx_t if t1 < r1 else idx_r   (a tie keeps the lower chunk)
+
+    Same arguments and outputs as `masked_best_match_cams`; for the tests."""
+    C, Q = desc_q.shape[:2]
+    T = desc_t.shape[-2]
+    dev = desc_q.device
+    r1 = torch.full((C, Q), BIG, dtype=torch.float32, device=dev)
+    r2 = torch.full((C, Q), BIG, dtype=torch.float32, device=dev)
+    ri = torch.full((C, Q), -1, dtype=torch.int32, device=dev)
+    cols = []
+    masked = mask_q is not None and mask_t is not None
+    for t0 in range(0, T, chunk):
+        sl = slice(t0, t0 + chunk)
+        t1, t2, ti, cb = masked_best_match_cams_plain(
+            desc_q, uv_q, oct_q, desc_t[..., sl, :], uv_t[:, sl], rad_t[:, sl], lvl_t[:, sl], rad_q,
+            mask_q, mask_t[..., sl, :] if masked else None, level_tol)
+        ti = torch.where(ti >= 0, ti + t0, ti)
+        r2 = torch.minimum(torch.maximum(r1, t1), torch.minimum(r2, t2))
+        ri = torch.where(t1 < r1, ti, ri)
+        r1 = torch.minimum(r1, t1)
+        cols.append(cb)
+    return r1, r2, ri, torch.cat(cols, dim=-1)
+
+
+def _scratch(C: int, Q: int, T: int, chunk: int, dev) -> torch.Tensor:
+    """The kernel's scratch: each block's partial (best, second, idx) per
+    query, [3, C, S, Q] with S = ceil(T / chunk), then one ticket per
+    (camera, query tile)."""
+    S = max(1, -(-T // chunk))
+    return torch.empty(3 * C * S * Q + C * -(-Q // QUERY_TILE), dtype=torch.int32, device=dev)
 
 
 def _check_all(checks, dev):
@@ -230,6 +305,8 @@ def masked_best_match_cams(
     second = torch.empty((C, Q), dtype=torch.float32, device=dev)
     idx = torch.empty((C, Q), dtype=torch.int32, device=dev)
     col_best = torch.empty((C, T), dtype=torch.float32, device=dev)
+    chunk = target_chunk(C, Q, T)
+    scratch = _scratch(C, Q, T, chunk, dev)
     fn = KERNEL.function()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -237,8 +314,9 @@ def masked_best_match_cams(
                  uv_q.data_ptr(), oct_q.data_ptr(), rad_q.data_ptr(),
                  desc_t.data_ptr(), mask_t.data_ptr() if masked else None, int(shared),
                  uv_t.data_ptr(), rad_t.data_ptr(), lvl_t.data_ptr(),
-                 C, Q, T, B, float(level_tol),
-                 best.data_ptr(), second.data_ptr(), idx.data_ptr(), col_best.data_ptr(), stream)
+                 C, Q, T, B, float(level_tol), chunk,
+                 best.data_ptr(), second.data_ptr(), idx.data_ptr(), col_best.data_ptr(),
+                 scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"best_match kernel launch failed: cudaError_t {err}")
     KERNEL.launches += 1
@@ -283,8 +361,8 @@ def masked_best_match(
 
     No system path calls it: like its TPU counterpart it is a single-camera
     op beside K1, held to its plain version by the tests and chip_smoke.py.
-    What bounds it is K1's latency: at Q = T = 800 the grid is one row of 7
-    blocks of 128 queries, each warp walking all 800 targets in sequence."""
+    It is K1's kernel without the column work: at Q = T = 800 the grid is 13
+    query tiles x 13 chunks of 64 targets."""
     if desc_q.device.type == "cpu":
         return masked_best_match_plain(desc_q, uv_q, oct_q, desc_t, uv_t, rad_t, lvl_t,
                                        rad_q, level_tol)
@@ -306,13 +384,15 @@ def masked_best_match(
     best = torch.empty((Q,), dtype=torch.float32, device=dev)
     second = torch.empty((Q,), dtype=torch.float32, device=dev)
     idx = torch.empty((Q,), dtype=torch.int32, device=dev)
+    chunk = target_chunk(1, Q, T)
+    scratch = _scratch(1, Q, T, chunk, dev)
     fn = KERNEL_SINGLE.function()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(desc_q.data_ptr(), uv_q.data_ptr(), oct_q.data_ptr(), rad_q.data_ptr(),
                  desc_t.data_ptr(), uv_t.data_ptr(), rad_t.data_ptr(), lvl_t.data_ptr(),
-                 Q, T, B, float(level_tol), best.data_ptr(), second.data_ptr(), idx.data_ptr(),
-                 stream)
+                 Q, T, B, float(level_tol), chunk, best.data_ptr(), second.data_ptr(),
+                 idx.data_ptr(), scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"best_match_single kernel launch failed: cudaError_t {err}")
     KERNEL_SINGLE.launches += 1

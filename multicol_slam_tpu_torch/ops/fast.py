@@ -14,6 +14,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from multicol_slam_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+
 # Bresenham circle of radius 3 (dx, dy), the FAST-16 ring, clockwise.
 FAST_RING = np.array(
     [
@@ -72,8 +74,8 @@ def fast_corners(img: torch.Tensor, threshold: float, pattern: int = 2) -> Tuple
     return is_corner, torch.maximum(score_b, score_d)
 
 
-def border_mask(h: int, w: int, border: int, device=None) -> torch.Tensor:
-    m = torch.zeros((h, w), dtype=torch.bool, device=device)
+def border_mask(h: int, w: int, border: int, device=DEFAULT_DEVICE) -> torch.Tensor:
+    m = torch.zeros((h, w), dtype=torch.bool, device=resolve_device(device))
     if h > 2 * border and w > 2 * border:
         m[border : h - border, border : w - border] = True
     return m

@@ -22,15 +22,16 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from multicol_slam_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from multicol_slam_tpu_torch.utils.geometry import triangulate_midpoint
 
 
 def sample_indices(n_hyp: int, sample_size: int, n_data: int,
-                   generator: Optional[torch.Generator] = None, device=None) -> torch.Tensor:
+                   generator: Optional[torch.Generator] = None, device=DEFAULT_DEVICE) -> torch.Tensor:
     """[S, m] random correspondence indices, drawn with replacement (a row
-    with a repeated index only wastes its hypothesis)."""
-    if generator is not None:
-        device = generator.device
+    with a repeated index only wastes its hypothesis), on the generator's
+    device, else on `device`."""
+    device = generator.device if generator is not None else resolve_device(device)
     return torch.randint(0, max(int(n_data), 1), (n_hyp, sample_size), generator=generator,
                          device=device)
 

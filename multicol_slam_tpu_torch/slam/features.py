@@ -17,6 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from multicol_slam_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from multicol_slam_tpu_torch.models.camera import OmniCamera, img_to_world, mirror_mask_grid
 from multicol_slam_tpu_torch.ops import brief as brief_ops
 from multicol_slam_tpu_torch.ops import fast as fast_ops
@@ -49,8 +50,9 @@ class ExtractorTables(nn.Module):
     """Constant tables of the extractor for one image size, as buffers: the
     BRIEF pattern, the IC-angle weights and the pyramid's resize matrices."""
 
-    def __init__(self, settings: ExtractorSettings, height: int, width: int, device=None):
+    def __init__(self, settings: ExtractorSettings, height: int, width: int, device=DEFAULT_DEVICE):
         super().__init__()
+        device = resolve_device(device)
         if settings.use_mdbrief:
             raise NotImplementedError("the dBRIEF/mdBRIEF extraction path is not ported yet")
         self.settings = settings

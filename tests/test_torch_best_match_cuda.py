@@ -13,7 +13,7 @@ import torch
 
 from multicol_slam_tpu_torch.ops.best_match import (
     KERNEL, KERNEL_SINGLE, masked_best_match, masked_best_match_cams, masked_best_match_cams_plain,
-    masked_best_match_plain,
+    masked_best_match_plain, target_chunk,
 )
 
 # (C, Q, T, desc bytes, shared desc_t, masked, ties, share of enabled targets)
@@ -27,6 +27,12 @@ CASES = {
     "all_disabled": (3, 16, 256, 32, True, False, False, 0.0),
     "16_bytes": (2, 40, 300, 16, True, True, False, 0.8),
     "64_bytes": (2, 40, 300, 64, False, False, False, 0.8),
+    # the split of the targets over blocks: T below one chunk, one past a
+    # chunk, 16 chunks + 1; Q one past a query tile
+    "T_below_chunk": (3, 400, 50, 32, True, False, False, 0.8),
+    "T_chunk_plus_1_masked": (3, 400, 65, 32, False, True, False, 0.8),
+    "T_16_chunks_plus_1": (3, 400, 4097, 32, True, False, False, 0.8),
+    "Q_tile_plus_1": (3, 65, 4096, 32, False, False, False, 0.8),
 }
 
 
@@ -97,6 +103,9 @@ K2_CASES = {
     "all_disabled": (16, 256, 32, False, 0.0, True),
     "16_bytes": (40, 300, 16, False, 0.8, True),
     "64_bytes": (40, 300, 64, False, 0.8, True),
+    "T_below_chunk": (800, 50, 32, False, 0.8, True),
+    "T_chunk_plus_1": (800, 65, 32, False, 0.8, True),
+    "Q_tile_plus_1": (65, 800, 32, False, 0.8, True),
 }
 
 
@@ -119,3 +128,59 @@ def test_cuda_single_camera_kernel_equals_plain_and_k1(case):
         assert torch.equal(a, b), f"{case}: {name}"
         assert torch.equal(a, c[0]), f"{case}: {name} vs K1"
     assert ((got[2] >= 0).sum() > 0) == (case != "all_disabled")
+
+
+def _border_ties(p, chunk):
+    """Target b copies target b - 1 at every chunk border b; query i copies
+    target b_i - 1, so its best is 0 at b_i - 1 with a tie at b_i."""
+    borders = list(range(chunk, p["uv_t"].shape[1], chunk))[: p["uv_q"].shape[1]]
+    for i, b in enumerate(borders):
+        p["desc_t"][..., b, :] = p["desc_t"][..., b - 1, :]
+        for k in ("uv_t", "lvl_t"):
+            p[k][:, b] = p[k][:, b - 1]
+        p["rad_t"][:, b - 1: b + 1] = 60.0
+        p["desc_q"][:, i] = p["desc_t"][..., b - 1, :]
+        p["uv_q"][:, i] = p["uv_t"][:, b - 1]
+        p["oct_q"][:, i] = p["lvl_t"][:, b - 1]
+        p["rad_q"][:, i] = 1e9
+    return borders
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 400, 4096), (3, 800, 800), (1, 800, 800)])
+def test_cuda_ties_across_chunk_borders(shape):
+    """K1 (and K2 at C = 1): a tie that straddles two blocks' chunks goes to
+    the lower t, exactly as in the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc to build the kernel)")
+    C, Q, T = shape
+    p = _problem(11, C, Q, T, 32, False, False, False, 0.8)
+    borders = _border_ties(p, target_chunk(C, Q, T))
+    p = {k: torch.tensor(v, device="cuda") for k, v in p.items()}
+    got = masked_best_match_cams(**p)
+    ref = masked_best_match_cams_plain(**p)
+    outs = [got]
+    if C == 1:
+        outs.append(masked_best_match(**{k: v[0] for k, v in p.items()}))
+    torch.cuda.synchronize()
+    for out in outs:
+        for name, a, b in zip(("best", "second", "idx", "col_best"), out, ref):
+            assert torch.equal(a.reshape(b.shape), b), f"{shape}: {name}"
+    idx = got[2].cpu().numpy()
+    for i, b in enumerate(borders):
+        assert (idx[:, i] == b - 1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["slice_shared", "slice_per_camera_masked", "ties"])
+def test_cuda_kernel_is_deterministic(case):
+    """Two calls on the same inputs give bit-identical outputs: the merge of
+    the blocks' partials does not depend on the order they finish in."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc to build the kernel)")
+    p = {k: torch.tensor(v, device="cuda") for k, v in _problem(12, *CASES[case]).items()}
+    a = masked_best_match_cams(**p)
+    b = masked_best_match_cams(**p)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("best", "second", "idx", "col_best"), a, b):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32)), f"{case}: {name}"

@@ -40,7 +40,7 @@ def rigs():
     c = jrig.cams
     trig = convert.rig_from_numpy(
         *(np.asarray(getattr(c, k)) for k in ("pol", "invpol", "cde", "pp", "wh")),
-        np.asarray(jrig.Mc_cayley))
+        np.asarray(jrig.Mc_cayley), device="cpu")
     return jrig, trig
 
 
@@ -139,7 +139,7 @@ def test_extract_features_parity(images, rigs):
     ts = ExtractorSettings(n_features=N_FEATS, n_levels=N_LEVELS, scale_factor=1.2, fast_th=FAST_TH)
     fj = extract_features_jit(jnp.asarray(images), jrig.cams, js)
     fj = {k: np.asarray(getattr(fj, k)) for k in ("uv", "octave", "angle", "rays", "desc", "valid", "response")}
-    tables = ExtractorTables(ts, H, W)
+    tables = ExtractorTables(ts, H, W, device="cpu")
     ft = extract_features(torch.tensor(images), trig.cams, ts, tables)
     assert ft.uv.shape == (C, N_FEATS, 2) and ft.desc.shape == (C, N_FEATS, 32)
     assert ft.desc.dtype == torch.uint8 and ft.octave.dtype == torch.int32

@@ -24,7 +24,7 @@ def _rig():
     c = jrig.cams
     trig = convert.rig_from_numpy(
         *(np.asarray(getattr(c, k)) for k in ("pol", "invpol", "cde", "pp", "wh")),
-        np.asarray(jrig.Mc_cayley))
+        np.asarray(jrig.Mc_cayley), device="cpu")
     return jrig, trig
 
 

@@ -44,7 +44,7 @@ def world():
 def _rig(jrig):
     c = jrig.cams
     return convert.rig_from_numpy(*(np.asarray(getattr(c, k)) for k in ("pol", "invpol", "cde", "pp", "wh")),
-                                  np.asarray(jrig.Mc_cayley))
+                                  np.asarray(jrig.Mc_cayley), device="cpu")
 
 
 def _fields(f):
@@ -58,7 +58,8 @@ def _jax_sampler(key):
 
 def _pair(world, t):
     f1, f2 = world.frame_features(0), world.frame_features(t)
-    return f1, f2, convert.frame_features_from_numpy(**_fields(f1)), convert.frame_features_from_numpy(**_fields(f2))
+    return (f1, f2, convert.frame_features_from_numpy(**_fields(f1), device="cpu"),
+            convert.frame_features_from_numpy(**_fields(f2), device="cpu"))
 
 
 @pytest.mark.parametrize("t", [1, 3, 6])
@@ -137,7 +138,7 @@ def test_downselect_features_exact(init_bank, with_keep, with_quotas):
     quotas = jfast.level_quota(js.n_features, js.n_levels, js.scale_factor) if with_quotas else None
     jf, jremap = jfeatures.downselect_features(jfeatures.FrameFeatures(**{k: jnp.asarray(v) for k, v in f.items()}),
                                                128, keep=keep, quotas=quotas)
-    tf, tremap = downselect_features(convert.frame_features_from_numpy(**f), 128, keep=keep, quotas=quotas)
+    tf, tremap = downselect_features(convert.frame_features_from_numpy(**f, device="cpu"), 128, keep=keep, quotas=quotas)
     np.testing.assert_array_equal(tremap, jremap)
     for k in FIELDS:
         a, b = getattr(tf, k).numpy(), np.asarray(getattr(jf, k))
@@ -161,7 +162,7 @@ def test_init_bank_extraction(world, source):
     js = JSettings(n_features=128, n_levels=4, scale_factor=1.2, fast_th=20)
     ts = ExtractorSettings(n_features=128, n_levels=4, scale_factor=1.2, fast_th=20)
     fj = _fields(extract_features_jit(jnp.asarray(images), world.rig.cams, js, n_features=256, fast_th=5.0))
-    ft = extract_features(torch.tensor(images), _rig(world.rig).cams, ts, ExtractorTables(ts, H, W),
+    ft = extract_features(torch.tensor(images), _rig(world.rig).cams, ts, ExtractorTables(ts, H, W, device="cpu"),
                           n_features=256, fast_th=5.0)
     assert ft.uv.shape == (C, 256, 2)
     ft = {k: getattr(ft, k).numpy() for k in fj}

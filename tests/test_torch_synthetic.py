@@ -30,7 +30,7 @@ WORLDS = {
 def _rig(jrig):
     c = jrig.cams
     return convert.rig_from_numpy(*(np.asarray(getattr(c, k)) for k in ("pol", "invpol", "cde", "pp", "wh")),
-                                  np.asarray(jrig.Mc_cayley))
+                                  np.asarray(jrig.Mc_cayley), device="cpu")
 
 
 @pytest.mark.parametrize("name", list(WORLDS))

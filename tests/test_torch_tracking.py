@@ -37,13 +37,13 @@ def _rig(jrig):
     c = jrig.cams
     return convert.rig_from_numpy(
         *(np.asarray(getattr(c, k)) for k in ("pol", "invpol", "cde", "pp", "wh")),
-        np.asarray(jrig.Mc_cayley))
+        np.asarray(jrig.Mc_cayley), device="cpu")
 
 
 def _both(arrays):
     """The same local map for both packages."""
     jp = JPoints(**{k: (None if v is None else jnp.asarray(v)) for k, v in arrays.items()})
-    return jp, convert.local_points_from_numpy(**arrays)
+    return jp, convert.local_points_from_numpy(**arrays, device="cpu")
 
 
 def _run(jrig, trig, jfeats, tfeats, pose, jpts, tpts, **kw):
@@ -73,7 +73,7 @@ def test_identical_features(world, masked):
         fields["dmask"] = rng.integers(0, 256, fields["desc"].shape, dtype=np.uint8) | 0xF0
         th = 48.0
     jfeats = type(wf)(**{k: jnp.asarray(v) for k, v in fields.items()})
-    tfeats = convert.frame_features_from_numpy(**fields)
+    tfeats = convert.frame_features_from_numpy(**fields, device="cpu")
     jpts, tpts = _both(arrays)
     pose = np.asarray(world.poses[1], np.float32) + DPOSE
     uj, ut = _run(world.rig, _rig(world.rig), jfeats, tfeats, pose, jpts, tpts,
@@ -111,7 +111,7 @@ def test_end_to_end_from_images(world):
                   min_dist=np.pad(mind, (0, L - n), constant_values=1.0).astype(np.float32),
                   max_dist=np.full(L, 40.0, np.float32), valid=np.arange(L) < n)
     jpts, tpts = _both(arrays)
-    tfeats = extract_features(torch.tensor(images), trig.cams, ts, ExtractorTables(ts, H, W))
+    tfeats = extract_features(torch.tensor(images), trig.cams, ts, ExtractorTables(ts, H, W, device="cpu"))
     uj, ut = _run(jrig, trig, jfeats, tfeats, DPOSE, jpts, tpts,
                   n_levels=4, radius1=15.0, radius2=4.0, th_desc=96.0)
     assert uj[4] >= 50, f"the scene must actually track ({uj[4]} inliers)"

@@ -73,8 +73,8 @@ def test_match_window_frames_exact(pairs, source, check_rotation, branch, monkey
     kw = dict(radius=100.0, th_desc=64.0, ratio=0.9, check_rotation=check_rotation)
     ij, dj = _jax(fq, ft, branch, monkeypatch, **kw)
     before = KERNEL.launches
-    it, dt = match_window_frames(convert.frame_features_from_numpy(**fq),
-                                 convert.frame_features_from_numpy(**ft), **kw)
+    it, dt = match_window_frames(convert.frame_features_from_numpy(**fq, device="cpu"),
+                                 convert.frame_features_from_numpy(**ft, device="cpu"), **kw)
     assert KERNEL.launches == before  # CPU tensors take the plain version
     it, dt = it.numpy(), dt.numpy()
     np.testing.assert_array_equal(it, ij)
@@ -84,7 +84,7 @@ def test_match_window_frames_exact(pairs, source, check_rotation, branch, monkey
 
 
 def test_match_fn_plain_and_wrapper_agree(pairs):
-    fq, ft = (convert.frame_features_from_numpy(**f) for f in pairs["rendered"])
+    fq, ft = (convert.frame_features_from_numpy(**f, device="cpu") for f in pairs["rendered"])
     a = match_window_frames(fq, ft, check_rotation=True)
     b = match_window_frames(fq, ft, check_rotation=True, match_fn=masked_best_match_cams_plain)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
@@ -92,7 +92,7 @@ def test_match_fn_plain_and_wrapper_agree(pairs):
 
 def test_rendered_rotation_check_filters(pairs):
     """Real angles: the histogram check removes some matches, not most."""
-    fq, ft = (convert.frame_features_from_numpy(**f) for f in pairs["rendered"])
+    fq, ft = (convert.frame_features_from_numpy(**f, device="cpu") for f in pairs["rendered"])
     n0 = int((match_window_frames(fq, ft)[0] >= 0).sum())
     n1 = int((match_window_frames(fq, ft, check_rotation=True)[0] >= 0).sum())
     assert 0.5 * n0 < n1 <= n0
