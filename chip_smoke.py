@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's tracking step and map bootstrap on one CUDA card.
+"""Drive the PyTorch port's tracking step, map bootstrap and sync system on
+one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--reloc-dump NPZ]
 
 Phases, each reported on its own lines:
   1. device: the card's name and power limit; TF32 off; the best-match
@@ -45,16 +46,34 @@ Phases, each reported on its own lines:
   9. split: K1 (tracking stage 1, bootstrap forward) and K2 at every
      target chunk the kernel takes (64, 128, 256): exact at each, and the
      device time of each beside the wrappers' own pick.
+ 10. system: `MultiColSLAM.track(images=...)` over 60 rendered frames of the
+     same room world at full Lafida width, in sync mode (bootstrap, map
+     writes, fusion and global BA, tracking, keyframes, local mapping,
+     relocalization when lost). An instrumented run counts K1's launches
+     at each caller (they must add up to the run's launches), times the
+     stages and captures the last fusion launch's arguments (targets x
+     cameras of the map; checked in phase 8); its uninstrumented twin
+     gives the frame times. One line a frame; then the frame it
+     initialized on, frames tracked, keyframes, map points, ATE against the
+     world's poses, K1 launches by caller, times by stage, and gates on
+     them. The twin and a replay with the plain matcher must give the same
+     states, inliers and keyframes, and bit-identical keyframe poses. Then
+     the relocalization branch on three frames against the final map;
+     `--reloc-dump NPZ` writes that map and those frames' features for
+     tests/torch_reloc_witness.py.
 Each time stands beside two bounds: the bytes at the HBM rate against the
 products of the P pairs that pass at the int8 tensor-core peak (what this
 run's data needs), and the dense one that counts every pair, as the TPU
 kernel computes them.
 Then one JSON line of kernels, and last {"ok": true, "device": {...}}.
+The order of the run: 1-5, 6-7, 10, then 8 and 9 on the captured launches.
 Any failure raises and exits non-zero. Needs one card; no CPU fallback.
 """
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -425,6 +444,7 @@ def phase_timing(dev, state, frame, card):
 
 # the map bootstrap (system.py:226-240, 390-445) on bench.py:207-211's world
 BOOT_FRAMES = 13         # frame 0 is the reference; attempts on frames 1..12
+SYS_FRAMES = 60          # the system phase's sequence (its first BOOT_FRAMES frames are the bootstrap's)
 BOOT_FEATS, BOOT_FAST = 800, 5.0   # the init bank: 2x features at FAST threshold 5
 BOOT_SEED = 2            # seed of the RANSAC generator, + the frame index
 MIN_INIT_KPS = 100       # system.py:53
@@ -523,7 +543,7 @@ def rot_deg(Ra, Rb):
 
 def build_bootstrap(dev):
     """The rig on the host (for rendering) and on the card, the world of
-    bench.py:207-211, its first BOOT_FRAMES frames and the extractor tables."""
+    bench.py:207-211, its first SYS_FRAMES frames and the extractor tables."""
     import torch
     from multicol_slam_tpu_torch.io.render import render_frame
     from multicol_slam_tpu_torch.io.synthetic import make_world
@@ -539,11 +559,11 @@ def build_bootstrap(dev):
 
     settings = ExtractorSettings(n_features=400, n_levels=8, scale_factor=1.2, fast_th=20)
     t0 = time.perf_counter()
-    world = make_world(n_points=3000, n_frames=BOOT_FRAMES, n_cams=C, n_feats=400, noise_px=0.0,
+    world = make_world(n_points=3000, n_frames=SYS_FRAMES, n_cams=C, n_feats=400, noise_px=0.0,
                        trajectory="circle_noyaw", radius=3.0, seed=12, period=400, landmarks="room",
                        max_vis_dist=12.0, rig=rig_on("cpu"))
-    images = [render_frame(world, t) for t in range(BOOT_FRAMES)]
-    log(f"bootstrap: rendered {BOOT_FRAMES} frames of {C}x{W}x{H} on the host in "
+    images = [render_frame(world, t) for t in range(SYS_FRAMES)]
+    log(f"bootstrap: rendered {SYS_FRAMES} frames of {C}x{W}x{H} on the host in "
         f"{time.perf_counter() - t0:.2f} s")
     return world, images, rig_on(dev), settings, ExtractorTables(settings, H, W, device=dev)
 
@@ -869,9 +889,270 @@ def phase_split(cases, card):
     return rows
 
 
-def main():
+# the system phase: the JAX package's result on this recipe on the CPU
+# (initialized on frame 3, 57 of 60 frames tracked, 9 keyframes, 680 map
+# points, ATE 0.0226 m) and the gates around it
+SYS_INIT_BY = 5
+SYS_MIN_TRACKED = 55
+SYS_KF_RANGE = (7, 11)
+SYS_PT_RANGE = (540, 820)
+SYS_ATE_GATE = 0.045
+# relocalization, called on these frames' features against the final map.
+# It is reported, not gated: its matches carry no ratio test, so ~35-42 %
+# of them are inliers at this width and 160 six-point hypotheses find the
+# pose about one time in two, and a confirmation of >= 10 inliers also
+# accepts a wrong pose now and then (the JAX package's rules, both seen on
+# the CPU).
+RELOC_FRAMES = (30, 40, 50)
+
+
+def _timed(fn, sink):
+    """fn wrapped to append its host ms (synchronised before and after)."""
     import torch
 
+    def wrapped(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        sink.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return wrapped
+
+
+def _counted(fn, kernel, key, counts):
+    """fn wrapped to add the K1 launches made inside it to counts[key]."""
+    def wrapped(*args, **kw):
+        before = kernel.launches
+        try:
+            return fn(*args, **kw)
+        finally:
+            counts[key] += kernel.launches - before
+    return wrapped
+
+
+def _capturing(fn, sink):
+    """fuse_match wrapped so that `sink` holds the arguments of its last K1
+    launch, and only those."""
+    def wrapped(*args, **kw):
+        sink.clear()
+        kw["match_fn"] = recording_match(sink)
+        return fn(*args, **kw)
+    return wrapped
+
+
+def run_system(dev, boot, match_fn, instrument):
+    """MultiColSLAM over the SYS_FRAMES rendered frames, sync mode. With
+    `instrument`, the K1 launches are counted by caller where each caller
+    calls (module-level names of the system and the local mapper, which a
+    reset does not replace; every launch must land in one), the stages are
+    timed (synchronised before and after) and the last fusion launch's
+    arguments are captured: the frame times of that run include this
+    instrumentation. Returns the system, per-frame metrics and what was
+    recorded."""
+    import torch
+    from multicol_slam_tpu_torch.ops.best_match import KERNEL
+    from multicol_slam_tpu_torch.slam import local_mapping as mapping_module
+    from multicol_slam_tpu_torch.slam import system as system_module
+    from multicol_slam_tpu_torch.slam.local_mapping import LocalMapper
+    from multicol_slam_tpu_torch.slam.map_store import MapConfig
+    from multicol_slam_tpu_torch.slam.system import MultiColSLAM
+    from multicol_slam_tpu_torch.utils.config import SlamSettings
+
+    world, images, rig, settings, _ = boot
+    slam = MultiColSLAM(rig, SlamSettings(fps=25.0, extractor=settings),
+                        MapConfig(max_keyframes=64, max_points=20000, n_cams=C,
+                                  feats_per_cam=settings.n_features, n_levels=settings.n_levels,
+                                  scale_factor=settings.scale_factor, desc_bytes=B),
+                        use_loop_closing=False, async_mapping=False, device=dev, match_fn=match_fn)
+    rec = {"launches": {"tracking": 0, "bootstrap": 0, "fuse": 0, "relocalization": 0},
+           "ms": {"global_ba": [], "local_ba": [], "create_new_points": [], "fuse_neighbors": []},
+           "fuse_args": [], "frame_launches": [], "map_size": []}
+    patched = []
+
+    def patch(owner, name, wrap):
+        patched.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, wrap(getattr(owner, name)))
+    if instrument:
+        counts, ms = rec["launches"], rec["ms"]
+        # the sync pipeline's callers of K1: the bootstrap's window matches,
+        # the fused tracking program (and its wide-window retry), fusion, and
+        # relocalization's confirming stage (the system's only track_stage)
+        patch(system_module, "bootstrap", lambda f: _counted(f, KERNEL, "bootstrap", counts))
+        patch(system_module, "track_frame_fused", lambda f: _counted(f, KERNEL, "tracking", counts))
+        patch(system_module, "track_stage", lambda f: _counted(f, KERNEL, "relocalization", counts))
+        patch(mapping_module, "fuse_match", lambda f: _counted(_capturing(f, rec["fuse_args"]), KERNEL, "fuse", counts))
+        patch(MultiColSLAM, "_global_ba", lambda f: _timed(f, ms["global_ba"]))
+        for stage in ("fuse_neighbors", "create_new_points", "local_ba"):
+            patch(LocalMapper, stage, lambda f, stage=stage: _timed(f, ms[stage]))
+    frames = []
+    KERNEL.launches = 0
+    try:
+        for t in range(SYS_FRAMES):
+            before = KERNEL.launches
+            frames.append(slam.track(images=torch.tensor(images[t], device=dev),
+                                     timestamp=float(world.timestamps[t])))
+            rec["frame_launches"].append(KERNEL.launches - before)
+            rec["map_size"].append((int(slam.store.kf_valid.sum()), int(slam.store.pt_valid.sum())))
+    finally:
+        for owner, name, orig in reversed(patched):
+            setattr(owner, name, orig)
+    torch.cuda.synchronize()
+    rec["total_launches"] = KERNEL.launches
+    if instrument and sum(rec["launches"].values()) != KERNEL.launches:
+        raise AssertionError(f"K1 launches by caller {rec['launches']} do not add up to the "
+                             f"{KERNEL.launches} launches of the run")
+    return slam, frames, rec
+
+
+def relocalize_frames(dev, slam, frames, images, card):
+    """The relocalization branch on the card: `_relocalize` (what a LOST
+    frame runs) on RELOC_FRAMES against the finished map. It must run; its
+    outcome and distance from the frame's track-time pose are printed.
+    Returns, by frame, its features and the outcome."""
+    import torch
+    from multicol_slam_tpu_torch.ops.best_match import KERNEL
+    from multicol_slam_tpu_torch.slam.system import LOST, FrameMetrics
+
+    out = {}
+    for k in RELOC_FRAMES:
+        feats = slam.prepare(torch.tensor(images[k], device=dev))
+        m = FrameMetrics(slam.frame_id, 0.0, LOST, slam.last_pose.copy())
+        before = KERNEL.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = slam._relocalize(feats, m)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        dist = float(np.linalg.norm(slam.last_pose[3:] - frames[k].pose[3:])) if ok else float("nan")
+        log(f"relocalization: frame {k}: {'relocalized' if ok else 'not relocalized'}, {m.n_inliers} confirmed "
+            f"inliers, {dist:.4f} m from its track-time pose, K1 launches {KERNEL.launches - before}, "
+            f"{ms:.3f} ms (host clock, synchronised) [{card}]")
+        out[k] = dict(feats=feats, ok=ok, n_inliers=m.n_inliers, dist=dist)
+    return out
+
+
+def dump_relocalization(path, slam, frames, reloc, boot):
+    """What a CPU run of the JAX package's `_relocalize` needs to face the
+    same map and frames (tests/torch_reloc_witness.py reads it): the map
+    store's arrays, the rig, the extractor, the frames' features, their
+    track-time poses and the card's outcomes."""
+    import dataclasses
+
+    s, rig, settings = slam.store, boot[2], boot[3]
+    arrays = {f"store_{k}": v for k, v in vars(s).items()
+              if k.startswith(("kf_", "pt_")) and isinstance(v, np.ndarray)}
+    cams = {f"rig_{k}": getattr(rig.cams, k).cpu().numpy() for k in ("pol", "invpol", "cde", "pp", "wh")}
+    feats = {f"frame{k}_{f.name}": getattr(r["feats"], f.name).cpu().numpy()
+             for k, r in reloc.items() for f in dataclasses.fields(r["feats"])}
+    meta = dict(cfg=dataclasses.asdict(s.cfg), n_kf=s.n_kf, n_pt_alloc=s.n_pt_alloc, free_kf=list(s._free_kf),
+                free_pt=list(s._free_pt), extractor=dataclasses.asdict(settings), last_kf_id=int(slam.last_kf_id),
+                frame_id=int(slam.frame_id), frames=list(reloc),
+                card={str(k): dict(ok=bool(r["ok"]), n_inliers=int(r["n_inliers"]), dist=r["dist"])
+                      for k, r in reloc.items()},
+                track_pose={str(k): [float(x) for x in frames[k].pose] for k in reloc})
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(path, meta=json.dumps(meta), rig_mc_cayley=rig.Mc_cayley.cpu().numpy(),
+                        **arrays, **cams, **feats)
+    log(f"relocalization: map, rig and the frames' features written to {path}")
+
+
+def phase_system(dev, boot, card, reloc_dump=None):
+    """The sync system on the card over SYS_FRAMES frames, its gates, and the
+    plain-matcher replay. The instrumented run gives the K1 launches by
+    caller and the stage times; its uninstrumented twin gives the frame
+    times, and both must agree frame by frame. Returns what the kernels line
+    needs."""
+    import torch
+    from multicol_slam_tpu_torch.io.trajectory import ate_rmse, load_tum_trajectory, umeyama_align
+    from multicol_slam_tpu_torch.ops.best_match import masked_best_match_cams, masked_best_match_cams_plain
+    from multicol_slam_tpu_torch.slam.system import WORKING
+    from multicol_slam_tpu_torch.utils.geometry import cayley_to_hom
+
+    world = boot[0]
+    slam, frames, rec = run_system(dev, boot, masked_best_match_cams, instrument=True)
+    t0 = time.perf_counter()
+    slam_u, frames_u, _ = run_system(dev, boot, masked_best_match_cams, instrument=False)
+    wall = time.perf_counter() - t0
+    s = slam.store
+    for t, (m, mu, n, (nk, npt)) in enumerate(zip(frames, frames_u, rec["frame_launches"], rec["map_size"])):
+        log(f"system: frame {t:2d} state {m.state} inliers {m.n_inliers:4d} keyframe {int(m.is_keyframe)} "
+            f"keyframes {nk:2d} points {npt:4d} {mu.track_ms:9.3f} ms, K1 launches {n}")
+    states = [m.state for m in frames]
+    working = [m for m in frames if m.state == WORKING]
+    init_frame = next((m.frame_id for m in frames if m.state == WORKING), None)
+    n_kf, n_pt = int(s.kf_valid.sum()), int(s.pt_valid.sum())
+    kf_frames = [m.frame_id for m in frames if m.is_keyframe]
+    est = np.stack([m.pose for m in working]) if working else np.zeros((0, 6), np.float32)
+    pos = lambda p: cayley_to_hom(torch.tensor(np.asarray(p, np.float32))).numpy()[:, :3, 3]  # noqa: E731
+    ate = float("inf")
+    if len(working) >= 3:
+        gt = pos(world.poses[[m.frame_id for m in working]])
+        ate = float(np.sqrt(np.mean(np.sum((umeyama_align(pos(est), gt) - gt) ** 2, -1))))
+    with tempfile.TemporaryDirectory() as tmp:
+        traj = os.path.join(tmp, "trajectory.txt")
+        slam.save_trajectory(traj)
+        t_est, p_est = load_tum_trajectory(traj)
+    ate_kf = ate_rmse(t_est, p_est, world.timestamps, pos(world.poses))
+    ms_kf = [m.track_ms for m in frames_u if m.state == WORKING and m.is_keyframe]
+    ms_plain = [m.track_ms for m in frames_u if m.state == WORKING and not m.is_keyframe]
+    med = lambda xs: float(np.median(xs)) if xs else float("nan")  # noqa: E731
+    stages = {k: [round(x, 3) for x in v] for k, v in rec["ms"].items()}
+    log(f"system: {SYS_FRAMES} frames of {C}x{W}x{H} in {wall:.3f} s (the uninstrumented run); initialized on "
+        f"frame {init_frame}; {len(working)} of {SYS_FRAMES} frames tracked; keyframes inserted on frames "
+        f"{kf_frames}; {n_kf} keyframes, {n_pt} map points at the end")
+    log(f"system: ATE (Sim3-aligned, track-time poses of the {len(working)} tracked frames) {ate:.6f} m "
+        f"(gate {SYS_ATE_GATE}); from the saved trajectory (keyframe-composed) {ate_kf:.6f} m")
+    log(f"system: K1 launches by caller {rec['launches']} (total {rec['total_launches']}, none left over)")
+    log(f"system: median ms a tracked frame {med(ms_plain):.3f} (no keyframe, {len(ms_plain)} frames), "
+        f"{med(ms_kf):.3f} (keyframe, {len(ms_kf)} frames); the uninstrumented run, host clock, the frame "
+        f"ends in a readback [{card}]")
+    log(f"system: stage ms (the instrumented run, host clock, synchronised) {json.dumps(stages)} [{card}]")
+    if init_frame is None or init_frame > SYS_INIT_BY:
+        raise AssertionError(f"initialized on frame {init_frame}, gate {SYS_INIT_BY}")
+    if len(working) < SYS_MIN_TRACKED:
+        raise AssertionError(f"{len(working)} frames tracked, gate {SYS_MIN_TRACKED}")
+    if not (SYS_KF_RANGE[0] <= n_kf <= SYS_KF_RANGE[1]) or not (SYS_PT_RANGE[0] <= n_pt <= SYS_PT_RANGE[1]):
+        raise AssertionError(f"{n_kf} keyframes (gate {SYS_KF_RANGE}), {n_pt} points (gate {SYS_PT_RANGE})")
+    if not ate <= SYS_ATE_GATE:
+        raise AssertionError(f"ATE {ate} m, gate {SYS_ATE_GATE}")
+    if min(rec["launches"]["tracking"], rec["launches"]["bootstrap"], rec["launches"]["fuse"]) == 0:
+        raise AssertionError(f"a caller of K1 launched nothing: {rec['launches']}")
+    if not rec["fuse_args"]:
+        raise AssertionError("no fusion launch captured")
+
+    # the uninstrumented twin and the plain matcher: the same run
+    slam_p, frames_p, _ = run_system(dev, boot, masked_best_match_cams_plain, instrument=False)
+    key = lambda fs: [(m.state, m.n_inliers, m.n_matches, m.is_keyframe) for m in fs]  # noqa: E731
+    for label, other, so in (("uninstrumented run", frames_u, slam_u.store),
+                             ("plain-matcher replay", frames_p, slam_p.store)):
+        if key(other) != key(frames):
+            diff = [i for i, (a, b) in enumerate(zip(key(frames), key(other))) if a != b]
+            raise AssertionError(f"{label} differs on frames {diff[:10]}")
+        if not (np.array_equal(so.kf_valid, s.kf_valid)
+                and np.array_equal(so.kf_pose[so.kf_valid], s.kf_pose[s.kf_valid])):
+            raise AssertionError(f"{label}: final keyframe poses differ")
+    log(f"system: the uninstrumented run and the plain-matcher replay identical (states, inliers, matches, "
+        f"keyframes per frame; {n_kf} keyframe poses bit-identical)")
+    launches = dict(rec["launches"])   # the main path's, before the relocalization check
+    reloc = relocalize_frames(dev, slam, frames, boot[1], card)
+    if reloc_dump:
+        dump_relocalization(reloc_dump, slam, frames, reloc, boot)
+    fuse = rec["fuse_args"][-1]
+    return dict(launches=launches, fuse=fuse, init_frame=init_frame, tracked=len(working), n_kf=n_kf,
+                n_pt=n_pt, ate=ate, ate_kf=ate_kf, ms_frame=med(ms_plain), ms_keyframe=med(ms_kf),
+                stages=stages, states=states)
+
+
+def main(argv=None):
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card.")
+    ap.add_argument("--reloc-dump", metavar="NPZ",
+                    help="also write the final map and the relocalization frames' features there")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -901,9 +1182,11 @@ def main():
     boot = build_bootstrap(dev)
     out = phase_bootstrap(dev, boot)
     bt = phase_bootstrap_timing(dev, boot, out, card)
+    system = phase_system(dev, boot, card, args.reloc_dump)
     captured = phase_captured(dev, [("tracking stage 1", cap_track[0]), ("tracking stage 2", cap_track[1]),
                                     ("bootstrap forward", out["captured"][0]),
-                                    ("bootstrap backward", out["captured"][1])], card)
+                                    ("bootstrap backward", out["captured"][1]),
+                                    ("system fusion", system["fuse"])], card)
     sweep = phase_split([
         ("K1 tracking stage 1", masked_best_match_cams, masked_best_match_cams_plain, cap_track[0]),
         ("K1 bootstrap forward", masked_best_match_cams, masked_best_match_cams_plain, out["captured"][0]),
@@ -921,8 +1204,9 @@ def main():
         "route": "cuda",
         "source": "multicol_slam_tpu_torch/csrc/best_match.cu",
         "replaces": "multicol_slam_tpu/ops/pallas_match.py:200",
-        "launches": launches + out["launches"],
-        "launches_by_path": {"tracking": launches, "bootstrap": out["launches"]},
+        "launches": launches + out["launches"] + sum(system["launches"].values()),
+        "launches_by_path": {"tracking": launches, "bootstrap": out["launches"],
+                             **{f"system_{k}": v for k, v in system["launches"].items()}},
         "max_abs_err": max_err,
         "ms": tk["ms"],
         "plain_ms": tk["plain_ms"],
@@ -940,13 +1224,16 @@ def main():
                                 **bound_keys(bt["k1_bound"], bt["k1"]["ms"])),
         "captured": captured,
         "split_sweep": [r for r in sweep if r["launch"].startswith("K1")],
+        "system": {k: system[k] for k in ("init_frame", "tracked", "n_kf", "n_pt", "ate", "ate_kf", "ms_frame",
+                                          "ms_keyframe")},
     }, {
         "name": "masked_best_match",
         "route": "cuda",
         "source": "multicol_slam_tpu_torch/csrc/best_match.cu",
         "replaces": "multicol_slam_tpu/ops/pallas_match.py:113",
         "launches": out["k2_drive"],
-        "launches_by_path": {"tracking": 0, "bootstrap": 0, "k2_window_match_by_camera": out["k2_drive"]},
+        "launches_by_path": {"tracking": 0, "bootstrap": 0, "system": 0,
+                             "k2_window_match_by_camera": out["k2_drive"]},
         "max_abs_err": k2_err,
         "ms": bt["k2"]["ms"],
         "plain_ms": bt["k2"]["plain_ms"],

@@ -1,10 +1,10 @@
 """Carry the reference package's state, given as numpy arrays, into the port.
 
-The system learns nothing, so its state is the rig calibration, the local
-map, a frame's features and, for tests and benchmarks, the synthetic world.
+The system learns nothing, so its state is the rig calibration, the map,
+a frame's features and, for tests and benchmarks, the synthetic world.
 Each function takes the arrays the JAX package holds (`np.asarray` of its
 fields) and returns the port's objects on `device`: the card unless the
-caller passes device="cpu".
+caller passes device="cpu". The map store is host numpy on both sides.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from multicol_slam_tpu_torch.io.synthetic import SyntheticWorld
 from multicol_slam_tpu_torch.models.camera import OmniCamera
 from multicol_slam_tpu_torch.models.rig import MultiCamRig
 from multicol_slam_tpu_torch.slam.features import FrameFeatures
+from multicol_slam_tpu_torch.slam.map_store import MapConfig, MapStore
 from multicol_slam_tpu_torch.slam.tracking_kernels import LocalPoints
 
 
@@ -65,3 +66,18 @@ def world_from_numpy(points, descs, poses, timestamps, n_feats, noise_px, seed, 
     return SyntheticWorld(rig, np.asarray(points, np.float32), np.asarray(descs, np.uint8),
                           np.asarray(poses, np.float32), np.asarray(timestamps),
                           int(n_feats), float(noise_px), int(seed), float(max_vis_dist))
+
+
+def map_store_from_numpy(cfg: dict, arrays: dict, n_kf: int, n_pt_alloc: int, free_kf, free_pt) -> MapStore:
+    """A reference `MapStore` -> the port's: `cfg` its MapConfig's fields
+    (`dataclasses.asdict`), `arrays` its kf_* and pt_* arrays, then its
+    slot counters and free lists. Every array is copied."""
+    store = MapStore(MapConfig(**cfg))
+    for name, a in arrays.items():
+        old = getattr(store, name)
+        if not (name.startswith(("kf_", "pt_")) and isinstance(old, np.ndarray)):
+            raise ValueError(f"{name} is not an array of the map store")
+        setattr(store, name, np.array(a, dtype=old.dtype))
+    store.n_kf, store.n_pt_alloc = int(n_kf), int(n_pt_alloc)
+    store._free_kf, store._free_pt = [int(k) for k in free_kf], [int(p) for p in free_pt]
+    return store

@@ -1,12 +1,13 @@
 """Synthetic multi-camera world: a known trajectory and 3-D landmarks with
-binary descriptors (port of `multicol_slam_tpu/io/synthetic.py`, without
-`synthesize_features` and `SyntheticWorld.frame_features`).
+binary descriptors, and the oracle features of each frame (port of
+`multicol_slam_tpu/io/synthetic.py`).
 
 Everything here is numpy on the host except the rig, which is the port's
 `MultiCamRig`. `make_world` is a host-side fixture: the rig it builds lies
 on the CPU (device="cpu", passed explicitly). For the same arguments the
 arrays equal the reference's exactly: the same generator draws in the same
-order.
+order. `synthesize_features` projects on the host and returns the frame's
+`FrameFeatures` on `device`.
 """
 from __future__ import annotations
 
@@ -17,8 +18,12 @@ import numpy as np
 import torch
 
 from multicol_slam_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from multicol_slam_tpu_torch.models.camera import OmniCamera, fit_inverse_poly
+from multicol_slam_tpu_torch.models.camera import (
+    OmniCamera, cam_img_to_world, cam_world_to_img, fit_inverse_poly, in_mirror_mask,
+)
 from multicol_slam_tpu_torch.models.rig import MultiCamRig
+from multicol_slam_tpu_torch.slam.features import FrameFeatures
+from multicol_slam_tpu_torch.utils.geometry import cayley_to_hom
 
 
 def make_synthetic_rig(n_cams: int = 3, w: int = 256, h: int = 192, device=DEFAULT_DEVICE) -> MultiCamRig:
@@ -57,6 +62,13 @@ class SyntheticWorld:
     seed: int
     # landmarks farther than this from the camera are not observed
     max_vis_dist: float = 25.0
+
+    def frame_features(self, t: int, device=DEFAULT_DEVICE) -> FrameFeatures:
+        return synthesize_features(
+            self.rig, self.points, self.descs, self.poses[t], self.n_feats,
+            noise_px=self.noise_px, seed=self.seed * 100003 + t,
+            max_vis_dist=self.max_vis_dist, device=device,
+        )
 
 
 def make_world(
@@ -175,4 +187,68 @@ def make_world(
     return SyntheticWorld(
         rig, points, descs, poses, timestamps, n_feats, noise_px, seed,
         max_vis_dist,
+    )
+
+
+def synthesize_features(
+    rig: MultiCamRig,
+    points: np.ndarray,
+    descs: np.ndarray,
+    pose6: np.ndarray,
+    n_feats: int,
+    noise_px: float = 0.3,
+    desc_flip_bits: int = 2,
+    seed: int = 0,
+    max_vis_dist: float = 25.0,
+    device=DEFAULT_DEVICE,
+) -> FrameFeatures:
+    """Project the landmarks into every camera at the body pose and emit a
+    padded FrameFeatures of noisy pixels and lightly corrupted descriptors
+    (the same generator draws, in the same order, as the reference)."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    cams = OmniCamera(*(getattr(rig.cams, k).cpu() for k in ("pol", "invpol", "cde", "pp", "wh")))
+    Mc = rig.Mc.cpu().numpy()
+    C = Mc.shape[0]
+    B = descs.shape[1]
+    Mt = cayley_to_hom(torch.tensor(np.asarray(pose6, np.float32))).numpy()
+    uv_list, ray_list, desc_list, valid_list = [], [], [], []
+    for c in range(C):
+        Tinv = np.linalg.inv(Mt @ Mc[c])
+        Xc = points @ Tinv[:3, :3].T + Tinv[:3, 3]
+        uv_t = cam_world_to_img(cams, c, torch.tensor(Xc, dtype=torch.float32))
+        uv = uv_t.numpy()
+        ok = Xc[:, 2] > 0
+        ok &= in_mirror_mask(cams, c, uv_t).numpy()
+        ok &= np.linalg.norm(Xc, axis=-1) < max_vis_dist
+        idx = np.nonzero(ok)[0]
+        rng.shuffle(idx)
+        idx = idx[:n_feats]
+        n = len(idx)
+        uv_sel = uv[idx] + rng.normal(0, noise_px, (n, 2))
+        d_sel = descs[idx].copy()
+        # flip a couple of random bits per descriptor (matching noise)
+        for _ in range(desc_flip_bits):
+            byte = rng.integers(0, B, n)
+            bit = rng.integers(0, 8, n).astype(np.uint8)
+            d_sel[np.arange(n), byte] ^= (1 << bit).astype(np.uint8)
+        pad = n_feats - n
+        uv_p = np.pad(uv_sel, ((0, pad), (0, 0))).astype(np.float32)
+        uv_list.append(uv_p)
+        ray_list.append(cam_img_to_world(cams, c, torch.from_numpy(uv_p)).numpy())
+        desc_list.append(np.pad(d_sel, ((0, pad), (0, 0))))
+        valid_list.append(np.pad(np.ones(n, bool), (0, pad)))
+    K = n_feats
+
+    def put(a, dtype):
+        return torch.tensor(np.asarray(a, dtype), device=device)
+    return FrameFeatures(
+        uv=put(np.stack(uv_list), np.float32),
+        response=torch.ones((C, K), dtype=torch.float32, device=device),
+        octave=torch.zeros((C, K), dtype=torch.int32, device=device),
+        angle=torch.zeros((C, K), dtype=torch.float32, device=device),
+        rays=put(np.stack(ray_list), np.float32),
+        desc=put(np.stack(desc_list), np.uint8),
+        dmask=torch.full((C, K, B), 255, dtype=torch.uint8, device=device),
+        valid=put(np.stack(valid_list), bool),
     )

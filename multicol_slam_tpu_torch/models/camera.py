@@ -60,6 +60,11 @@ class OmniCamera(nn.Module):
             [self.cde, self.pp, self.pol[:, :n_pol], self.invpol[:, :n_invpol]], dim=-1
         )
 
+    def tile(self, n: int) -> "OmniCamera":
+        """The rig's cameras repeated n times along the camera axis:
+        camera j * C + c is camera c (the reference's tree_map(jnp.tile))."""
+        return OmniCamera(*(getattr(self, k).repeat(n, 1) for k in ("pol", "invpol", "cde", "pp", "wh")))
+
     @classmethod
     def from_vector(cls, vec: torch.Tensor, wh: torch.Tensor, n_pol: int = 5, n_invpol: int = 12):
         pol = vec.new_zeros(vec.shape[:-1] + (MAX_POL,))

@@ -20,6 +20,10 @@ class MultiCamRig(nn.Module):
         self.register_buffer("Mc", Mc)
         self.register_buffer("Mc_cayley", Mc_cayley)
 
+    @property
+    def n_cams(self) -> int:
+        return self.Mc.shape[0]
+
     @classmethod
     def from_cayley(cls, cams: OmniCamera, mc_cayley: torch.Tensor) -> "MultiCamRig":
         mc_cayley = torch.as_tensor(mc_cayley, device=cams.pol.device)

@@ -67,13 +67,14 @@ def rotation_consistency(dangle: torch.Tensor, ok: torch.Tensor, n_bins: int = 3
     """ORB rotation-histogram check (cORBmatcher's rotHist): histogram the
     match angle deltas into 30 bins and keep only matches in the `keep_bins`
     most popular bins that also hold >= 10% of the top bin's votes.
-    dangle [Q] radians; ok [Q] bool."""
+    dangle [..., Q] radians; ok [..., Q] bool; one histogram per leading
+    index."""
     two_pi = 2.0 * math.pi
     frac = torch.remainder(dangle, two_pi) / two_pi            # floor modulo, as jnp's %
     bins = torch.clamp((frac * n_bins).to(torch.int32), 0, n_bins - 1).long()
-    counts = torch.zeros(n_bins, dtype=torch.int32, device=dangle.device)
-    counts = counts.scatter_add(0, bins, ok.to(torch.int32))
-    top = torch.topk(counts, keep_bins).values
-    thresh = torch.maximum(top[-1], (0.1 * top[0]).to(counts.dtype))
-    keep = counts[bins] >= torch.clamp_min(thresh, 1)
+    counts = torch.zeros(ok.shape[:-1] + (n_bins,), dtype=torch.int32, device=dangle.device)
+    counts = counts.scatter_add(-1, bins, ok.to(torch.int32))
+    top = torch.topk(counts, keep_bins, dim=-1).values
+    thresh = torch.maximum(top[..., -1], (0.1 * top[..., 0]).to(counts.dtype))
+    keep = torch.gather(counts, -1, bins) >= torch.clamp_min(thresh, 1)[..., None]
     return ok & keep

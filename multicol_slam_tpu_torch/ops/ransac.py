@@ -1,16 +1,15 @@
-"""Batched essential-matrix RANSAC on unit rays, the map bootstrap's relative
-pose solver (port of the central relative-pose part of
-`multicol_slam_tpu/ops/ransac.py`; the non-central pose and Sim3 solvers
-wait).
+"""Batched RANSAC on unit rays (port of `multicol_slam_tpu/ops/ransac.py`):
+the essential-matrix relative pose of the map bootstrap and the non-central
+absolute pose of relocalization; the Sim3 solver of loop closing waits.
 
-A fixed batch of S hypotheses: every 8-point problem is one batched SVD, and
-all 4 S chirality candidates are scored against all N correspondences in one
-dense pass (triangulate, reproject, angular error 1 - cos). The winner is
-refit on its whole consensus set.
+A fixed batch of S hypotheses: every minimal problem is one batched solve
+(8-point SVD, or the non-central DLT on rays with a Procrustes projection),
+and all hypotheses are scored against all N correspondences in one dense
+pass. The winner is refit on its whole consensus set.
 
 Randomness: the reference draws with `jax.random`, which torch cannot
-reproduce. `ransac_essential` therefore takes the hypotheses' indices
-`idx [S, 8]` explicitly, or a `torch.Generator` to draw them from.
+reproduce. Each solver therefore takes the hypotheses' indices `idx`
+explicitly, or a `torch.Generator` to draw them from.
 
 SVD: the sign of a singular vector, the order of the four (R, t) candidates
 and the degenerate hypotheses (a sample with a repeated index) may differ
@@ -23,7 +22,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from multicol_slam_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from multicol_slam_tpu_torch.utils.geometry import triangulate_midpoint
+from multicol_slam_tpu_torch.utils.geometry import skew, triangulate_midpoint
 
 
 def sample_indices(n_hyp: int, sample_size: int, n_data: int,
@@ -138,3 +137,104 @@ def ransac_essential(
     inl_out = torch.where(use_refit, inl_r[kbest], inl[best])
     n_out = torch.where(use_refit, counts_r[kbest], counts[best])
     return RelPoseResult(R_out, t_out, inl_out, n_out, n_out.to(torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# Non-central absolute pose (relocalization): DLT on rays + Procrustes
+# ---------------------------------------------------------------------------
+
+def _noncentral_dlt(X: torch.Tensor, rays: torch.Tensor, Rc: torch.Tensor, tc: torch.Tensor,
+                    w: Optional[torch.Tensor] = None):
+    """Linear non-central absolute pose from m >= 6 point <-> ray matches:
+    the world -> body [R | t] from cross(Rc r, R X + t - tc) = 0, linear in
+    (R, t), least squares by the 12x12 normal equations, then R projected
+    onto SO(3). X [S, m, 3], rays [S, m, 3] (camera frame), Rc [S, m, 3, 3],
+    tc [S, m, 3] each match's camera -> body extrinsics, w [S, m] optional
+    weights. Returns R [S, 3, 3], t [S, 3]."""
+    S, m, _ = X.shape
+    rb = torch.einsum("smij,smj->smi", Rc, rays)                 # rays in the body frame
+    Cx = skew(rb)                                                 # [S, m, 3, 3]
+    # unknown z = [rows of R; t]: Cx (R X + t) = Cx tc
+    A_R = torch.einsum("smab,smc->smabc", Cx, X).reshape(S, m, 3, 9)
+    A = torch.cat([A_R, Cx], dim=-1).reshape(S, 3 * m, 12)
+    b = torch.einsum("smab,smb->sma", Cx, tc).reshape(S, 3 * m)
+    if w is not None:
+        ww = torch.repeat_interleave(torch.sqrt(torch.clamp_min(w, 0.0)), 3, dim=-1)
+        A = A * ww[..., None]
+        b = b * ww
+    eye = torch.eye(12, dtype=X.dtype, device=X.device)
+    AtA = torch.einsum("ska,skb->sab", A, A) + 1e-9 * eye
+    Atb = torch.einsum("ska,sk->sa", A, b)
+    z = torch.linalg.solve(AtA, Atb[..., None])[..., 0]
+    R_raw = z[:, :9].reshape(S, 3, 3)
+    t_raw = z[:, 9:]
+    U, sv, Vt = torch.linalg.svd(R_raw)
+    detUV = torch.linalg.det(torch.matmul(U, Vt))
+    D = torch.stack([torch.ones_like(detUV), torch.ones_like(detUV), detUV], -1)
+    R = torch.einsum("sij,sj,sjk->sik", U, D, Vt)
+    scale = torch.sum(sv * D, dim=-1) / 3.0
+    return R, t_raw / torch.clamp_min(scale, 1e-9)[:, None]
+
+
+def _body_to_world(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """inv([R | t]) as a 4x4 (body -> world)."""
+    M = torch.eye(4, dtype=R.dtype, device=R.device)
+    M[:3, :3] = R.T
+    M[:3, 3] = -(R.T @ t)
+    return M
+
+
+class AbsPoseResult(NamedTuple):
+    Mt: torch.Tensor         # [4, 4] body -> world
+    inliers: torch.Tensor    # [N] bool
+    n_inliers: torch.Tensor  # scalar
+
+
+def sample_weighted(n_hyp: int, sample_size: int, valid: torch.Tensor,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """[S, m] indices of distinct valid rows per hypothesis (the
+    reference's choice without replacement, p = valid / sum(valid))."""
+    w = valid.to(torch.float32)
+    return torch.multinomial(w.expand(n_hyp, -1), sample_size, replacement=False, generator=generator)
+
+
+def ransac_noncentral_pose(
+    X: torch.Tensor,
+    rays: torch.Tensor,
+    Rc: torch.Tensor,
+    tc: torch.Tensor,
+    valid: torch.Tensor,
+    n_hyp: int = 160,
+    sample_size: int = 6,
+    ray_th: float = 1e-2,
+    generator: Optional[torch.Generator] = None,
+    idx: Optional[torch.Tensor] = None,
+) -> AbsPoseResult:
+    """Relocalization pose RANSAC (in place of OpenGV's GP3P + gpnp,
+    cTracking.cpp:1274-1275). X [N, 3] world points; rays [N, 3] unit rays
+    in the observing camera's frame; Rc / tc [N, 3, 3] / [N, 3] that
+    camera's extrinsics; valid [N]. A correspondence is an inlier when the
+    sine between its ray and the predicted direction is below ray_th, in
+    front. The hypotheses are `idx [S, m]` when given, else drawn from
+    `generator` among the valid rows."""
+    if idx is None:
+        idx = sample_weighted(n_hyp, sample_size, valid, generator)
+    idx = idx.to(X.device).long()
+    R, t = _noncentral_dlt(X[idx], rays[idx], Rc[idx], tc[idx])       # world -> body
+    rb = torch.einsum("nij,nj->ni", Rc, rays)                        # [N, 3] body-frame rays
+    pred = torch.einsum("sij,nj->sni", R, X) + t[:, None, :] - tc[None]
+    pred = pred / (torch.linalg.vector_norm(pred, dim=-1, keepdim=True) + 1e-12)
+    sine = torch.linalg.vector_norm(torch.cross(pred, rb[None].expand_as(pred), dim=-1), dim=-1)
+    dotp = torch.sum(pred * rb[None], dim=-1)
+    inl = (sine < ray_th) & (dotp > 0) & valid[None]
+    counts = inl.sum(dim=1)
+    best = torch.argmax(counts)
+    return AbsPoseResult(_body_to_world(R[best], t[best]), inl[best], counts[best])
+
+
+def refine_noncentral_pose(X: torch.Tensor, rays: torch.Tensor, Rc: torch.Tensor, tc: torch.Tensor,
+                           w: torch.Tensor) -> torch.Tensor:
+    """gpnp-style refinement: the weighted non-central DLT over all inliers
+    (weights w [N] in [0, 1]). Returns Mt [4, 4] body -> world."""
+    R, t = _noncentral_dlt(X[None], rays[None], Rc[None], tc[None], w[None])
+    return _body_to_world(R[0], t[0])

@@ -1,15 +1,16 @@
-"""Bundle-adjustment problem as flat observation tables (port of the parts of
-`multicol_slam_tpu/optim/problem.py` that pose-only optimization needs).
+"""Bundle-adjustment problem as flat observation tables (port of
+`multicol_slam_tpu/optim/problem.py`).
 
 Parameters: poses [K, 6] (M_t Cayley, body -> world), points [P, 3], mc
 [C, 6] (M_c Cayley), intr [C, 22] (`OmniCamera.to_vector` layout). One
 observation row per (keyframe, point, camera) measurement. The reference's
-per-row `vmap` is a leading batch dimension here, and the pose Jacobian is
-written in closed form instead of reverse-mode autodiff.
+per-row `vmap` is a leading batch dimension here, and every Jacobian block
+is written in closed form instead of reverse-mode autodiff (eager autodiff
+would multiply the ops of every LM iteration).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +32,16 @@ class Observations(NamedTuple):
     uv: torch.Tensor          # [O, 2] f32 measured pixel
     inv_sigma2: torch.Tensor  # [O] f32 information (1 / sigma^2 of the octave)
     valid: torch.Tensor       # [O] bool
+
+
+class FreeMask(NamedTuple):
+    """Which variable groups a solve moves (g2o's setFixed). mc / intr: a
+    bool for every camera, or a [C] bool tensor."""
+
+    poses: torch.Tensor   # [K] bool
+    points: torch.Tensor  # [P] bool
+    mc: Union[bool, torch.Tensor] = False
+    intr: Union[bool, torch.Tensor] = False
 
 
 class BAParams(NamedTuple):
@@ -113,12 +124,15 @@ def _project_jac(intr_vec: torch.Tensor, Xc: torch.Tensor) -> torch.Tensor:
     return torch.stack([c * duu + d * dvv, e * duu + dvv], -2)
 
 
-def pose_residuals_and_jac(params: BAParams, obs: Observations):
-    """r [O, 2], z [O] and the pose Jacobian dr/dpose [O, 2, 6] (closed form:
-    Xc = Rc^T (R^T (X - t) - tc), so dXc/dt = -Rc^T R^T and
-    dXc/dc_k = Rc^T (dR/dc_k)^T (X - t))."""
-    p6, m6, iv, X = _gather(params, obs)
-    r, z = residual_one(p6, m6, iv, X, obs.uv)
+def _jacobians(p6, m6, iv, X, with_points: bool, with_mc: bool, with_intr: bool):
+    """Closed-form blocks of dr/dparam for r = uv_meas - pi(intr, Xc), with
+    Xc = Rc^T (R^T (X - t) - tc): pose [O, 2, 6], then point [O, 2, 3], mc
+    [O, 2, 6] and intr [O, 2, 22] where asked (None otherwise).
+
+    dXc/dc_k = Rc^T (dR/dc_k)^T (X - t), dXc/dt = -Rc^T R^T, dXc/dX = Rc^T R^T,
+    dXc/dcc_k = (dRc/dcc_k)^T (R^T (X - t) - tc), dXc/dtc = -Rc^T; the
+    intrinsics enter only the projection: u = c uu + d vv + u0,
+    v = e uu + vv + v0, (uu, vv) = xy / |xy| * sum_i a_i theta^i."""
     R = cayley_to_rot(p6[..., :3])
     Mc = cayley_to_hom(m6)
     Rc_t = Mc[..., :3, :3].transpose(-1, -2)
@@ -127,9 +141,53 @@ def pose_residuals_and_jac(params: BAParams, obs: Observations):
     dR = _cayley_rot_jac(p6[..., :3])                                      # [O, 3k, 3, 3]
     dXc_dc = torch.einsum("oij,okmj,om->oik", Rc_t, dR, D)                 # Rc^T dR_k^T D
     dXc_dt = -torch.matmul(Rc_t, R.transpose(-1, -2))
-    dXc = torch.cat([dXc_dc, dXc_dt], -1)                                  # [O, 3, 6]
-    Jp = -torch.matmul(_project_jac(iv, Xc), dXc)
-    return r, z, Jp
+    dP = _project_jac(iv, Xc)                                              # [O, 2, 3]
+    Jp = -torch.matmul(dP, torch.cat([dXc_dc, dXc_dt], -1))
+    Jx = Jm = Ji = None
+    if with_points:
+        Jx = torch.matmul(dP, dXc_dt)                                      # -dP (-Rc^T R^T)
+    if with_mc:
+        Y = torch.einsum("oji,oj->oi", R, D) - m6[..., 3:]                 # R^T (X - t) - tc
+        dRc = _cayley_rot_jac(m6[..., :3])
+        dXc_dcc = torch.einsum("okmi,om->oik", dRc, Y)                     # dRc_k^T Y
+        Jm = -torch.matmul(dP, torch.cat([dXc_dcc, -Rc_t], -1))
+    if with_intr:
+        x, y, z = Xc[..., 0], Xc[..., 1], Xc[..., 2]
+        n = torch.clamp_min(torch.sqrt(x * x + y * y), 1e-14)
+        theta = torch.atan2(-z, n)
+        rho = horner(_invpol(iv), theta)
+        ux, uy = x / n, y / n
+        uu, vv = ux * rho, uy * rho
+        c, d, e = iv[..., 0], iv[..., 1], iv[..., 2]
+        zero, one = torch.zeros_like(x), torch.ones_like(x)
+        powers = theta[..., None] ** torch.arange(_N_INVPOL, dtype=theta.dtype, device=theta.device)
+        du_da = (c * ux + d * uy)[..., None] * powers
+        dv_da = (e * ux + uy)[..., None] * powers
+        pol0 = torch.zeros(x.shape + (_N_POL,), dtype=x.dtype, device=x.device)
+        du = torch.cat([torch.stack([uu, vv, zero, one, zero], -1), pol0, du_da], -1)
+        dv = torch.cat([torch.stack([zero, zero, uu, zero, one], -1), pol0, dv_da], -1)
+        Ji = -torch.stack([du, dv], -2)
+    return Jp, Jx, Jm, Ji
+
+
+def residuals_and_jacobians(params: BAParams, obs: Observations,
+                            with_mc: bool = True, with_intr: bool = True):
+    """r [O, 2], z [O] and the Jacobian blocks, observation-major: Jpose
+    [O, 2, 6], Jpt [O, 2, 3], Jmc [O, 2, 6], Jintr [O, 2, INTR_DIM]; Jmc /
+    Jintr are None when with_mc / with_intr is False (the standard BA modes
+    keep the rig fixed)."""
+    p6, m6, iv, X = _gather(params, obs)
+    r, z = residual_one(p6, m6, iv, X, obs.uv)
+    Jp, Jx, Jm, Ji = _jacobians(p6, m6, iv, X, True, with_mc, with_intr)
+    return r, z, Jp, Jx, Jm, Ji
+
+
+def pose_residuals_and_jac(params: BAParams, obs: Observations):
+    """r [O, 2], z [O] and the pose Jacobian dr/dpose [O, 2, 6] only (the
+    pose-only solve of tracking)."""
+    p6, m6, iv, X = _gather(params, obs)
+    r, z = residual_one(p6, m6, iv, X, obs.uv)
+    return r, z, _jacobians(p6, m6, iv, X, False, False, False)[0]
 
 
 def huber_weights(r: torch.Tensor, z: torch.Tensor, obs: Observations, delta: float):

@@ -1,0 +1,582 @@
+"""System facade: the tracking state machine and the sequential pipeline
+(port of `multicol_slam_tpu/slam/system.py`, sync mode).
+
+Per frame (cSystem + cTracking, cTracking.cpp:237): extract -> (bootstrap |
+the fused two-stage tracking program) -> keyframe decision, with the map
+extended by slam/local_mapping.py after each keyframe, inline. LOST frames
+relocalize against the last keyframe's covisible neighbourhood.
+
+States: NO_IMAGES_YET -> NOT_INITIALIZED -> INITIALIZING -> WORKING <-> LOST
+(cTracking.h:79-87).
+
+Not ported yet, and raising NotImplementedError when asked for: loop
+closing (`use_loop_closing=True`, with the vocabulary relocalization that
+comes with it), the async mapping worker (`async_mapping=True`), and
+mdBRIEF mask matching. Callers pass `use_loop_closing=False`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from multicol_slam_tpu_torch import native
+from multicol_slam_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from multicol_slam_tpu_torch.io.trajectory import save_lafida_trajectory
+from multicol_slam_tpu_torch.models.rig import MultiCamRig
+from multicol_slam_tpu_torch.ops.best_match import masked_best_match_cams
+from multicol_slam_tpu_torch.ops.fast import level_quota
+from multicol_slam_tpu_torch.ops.matching import hamming_matrix
+from multicol_slam_tpu_torch.ops.ransac import ransac_noncentral_pose, refine_noncentral_pose, sample_weighted
+from multicol_slam_tpu_torch.optim.ba import bundle_adjust
+from multicol_slam_tpu_torch.slam.features import (
+    ExtractorTables, FrameFeatures, downselect_features, extract_features,
+)
+from multicol_slam_tpu_torch.slam.initializer import (
+    _mt2_of_scale, bootstrap, calibrate_metric_scale, points_to_world,
+)
+from multicol_slam_tpu_torch.slam.local_mapping import LocalMapper
+from multicol_slam_tpu_torch.slam.map_store import (
+    BAD_ID, MapConfig, MapStore, cayley_to_hom_np, hom_to_cayley_np,
+)
+from multicol_slam_tpu_torch.slam.tracking_kernels import (
+    LocalPoints, track_frame_fused, track_stage, unpack_fused,
+)
+from multicol_slam_tpu_torch.utils.config import SlamSettings
+from multicol_slam_tpu_torch.utils.geometry import hom_to_cayley
+
+# tracking states (cTracking.h:79-87)
+NO_IMAGES_YET = 0
+NOT_INITIALIZED = 1
+INITIALIZING = 2
+WORKING = 3
+LOST = 4
+
+MIN_INIT_KPS = 100        # cTracking.cpp:383
+MIN_TRACK_INLIERS = 15    # cTracking.cpp:881-886
+MIN_POSE_INLIERS = 6      # after the pose-only stages (:794)
+KF_MIN_INLIERS = 25       # c2 gate (:914-928)
+KF_REF_RATIO = 0.9
+STAGE2_CAP = 4096         # most local-map points a tracking stage takes
+
+
+@dataclasses.dataclass
+class _FrameHandle:
+    """A frame between track_begin and track_finish: the fused tracking
+    program's packed result and the host state its consumption needs."""
+
+    feats: FrameFeatures
+    timestamp: float
+    m: "FrameMetrics"
+    t0: float
+    done: bool = False            # finished inside begin (bootstrap states)
+    packed: Optional[torch.Tensor] = None
+    lp2: Optional[LocalPoints] = None
+    pt_ids2: Optional[np.ndarray] = None
+    begin_ms: float = 0.0
+
+
+@dataclasses.dataclass
+class FrameMetrics:
+    frame_id: int
+    timestamp: float
+    state: int
+    pose: np.ndarray
+    n_matches: int = 0
+    n_inliers: int = 0
+    track_ms: float = 0.0
+    is_keyframe: bool = False
+    # the pose relative to the reference keyframe at track time: the saved
+    # trajectory composes it with the keyframe's FINAL pose (the reference
+    # writes keyframe poses at shutdown, cSystem.cpp:260-290)
+    ref_kf: int = -1
+    ref_kf_frame: int = -1     # identity check: keyframe slots are recycled
+    rel_pose: Optional[np.ndarray] = None  # cayley6 of M_ref^-1 M_frame
+
+
+class MultiColSLAM:
+    """The cSystem equivalent: construct once, call `track` per frame.
+
+    `device`: where the pipeline runs (the card unless device="cpu"); the
+    rig must lie there. `init_sampler(frame_id, cam, n) -> [256, 8]` and
+    `reloc_sampler(frame_id, n) -> [160, 6]` give the RANSAC hypotheses of a
+    bootstrap attempt and of a relocalization (default: drawn from a
+    torch.Generator seeded with `seed`). `match_fn` is the best-match
+    kernel's wrapper, or its plain version to compare against."""
+
+    def __init__(
+        self,
+        rig: MultiCamRig,
+        settings: SlamSettings,
+        map_cfg: Optional[MapConfig] = None,
+        use_loop_closing: bool = True,
+        seed: int = 0,
+        async_mapping: bool = False,
+        device=DEFAULT_DEVICE,
+        init_sampler: Optional[Callable] = None,
+        reloc_sampler: Optional[Callable] = None,
+        match_fn: Callable = masked_best_match_cams,
+    ):
+        if use_loop_closing:
+            raise NotImplementedError("loop closing is not ported yet (slice 4 of ROADMAP.md): "
+                                      "pass use_loop_closing=False")
+        if async_mapping:
+            raise NotImplementedError("the async mapping worker is not ported yet (ROADMAP.md): "
+                                      "pass async_mapping=False")
+        if settings.extractor.use_mdbrief and settings.extractor.learn_masks:
+            raise NotImplementedError("mdBRIEF mask matching is not ported yet (it comes with the "
+                                      "dBRIEF/mdBRIEF extraction path, ROADMAP.md)")
+        self.device = resolve_device(device)
+        if rig.Mc.device.type != self.device.type:
+            raise ValueError(f"the rig lies on {rig.Mc.device}, the system runs on {self.device}")
+        self.rig = rig
+        self.settings = settings
+        ex = settings.extractor
+        self.map_cfg = map_cfg or MapConfig(n_cams=rig.n_cams, feats_per_cam=ex.n_features,
+                                            n_levels=ex.n_levels, scale_factor=ex.scale_factor,
+                                            desc_bytes=ex.desc_size)
+        self.th_track = 3.0 * self.map_cfg.desc_bytes   # TH_HIGH
+        self.th_low = 2.0 * self.map_cfg.desc_bytes     # TH_LOW
+        self.match_fn = match_fn
+        self.init_sampler = init_sampler
+        self.reloc_sampler = reloc_sampler
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.store = MapStore(self.map_cfg)
+        self.mapper = LocalMapper(self.store, rig, match_fn=match_fn)
+        self.mc6 = rig.Mc_cayley.to(torch.float32)
+        self.intr = rig.cams.to_vector()
+        self._tables: Optional[ExtractorTables] = None
+        self.state = NO_IMAGES_YET
+        self.frame_id = -1
+        self.last_pose = np.zeros(6, np.float32)
+        self.velocity = np.eye(4, dtype=np.float32)
+        self.ref_feats: Optional[FrameFeatures] = None
+        self.last_feats: Optional[FrameFeatures] = None
+        self.last_assign_global: Optional[np.ndarray] = None  # feature -> global point id
+        self.last_kf_id = -1
+        self.frames_since_kf = 0
+        self.ref_kf_tracked = 0
+        self.ref_kf_id = -1          # mpReferenceKF (max-vote local keyframe)
+        self._last_reloc_frame = -(10 ** 9)  # mnLastRelocFrameId
+        self._truncated_local_pts = 0  # local-map points dropped at STAGE2_CAP
+        self.trajectory: List[FrameMetrics] = []
+
+    # ------------------------------------------------------------------
+    def prepare(self, images) -> FrameFeatures:
+        """Feature extraction of a frame, to pass to track(feats=...)."""
+        return self._extract(images)
+
+    def _extract(self, images) -> FrameFeatures:
+        """Extraction with the state's bank: while bootstrapping, the init
+        bank (2x features at FAST threshold 5, cTracking.cpp:152-158), then
+        the runtime bank."""
+        ex = self.settings.extractor
+        images = torch.as_tensor(images, device=self.device)
+        if self._tables is None:
+            self._tables = ExtractorTables(ex, images.shape[1], images.shape[2], device=self.device)
+        if self.state in (NO_IMAGES_YET, NOT_INITIALIZED, INITIALIZING):
+            return extract_features(images, self.rig.cams, ex, self._tables,
+                                    n_features=2 * ex.n_features, fast_th=5.0)
+        return extract_features(images, self.rig.cams, ex, self._tables)
+
+    def _level_quotas(self) -> np.ndarray:
+        """Per-level slot budgets of the RUNTIME bank (kept by the init-bank
+        downselect so coarse levels are never starved)."""
+        ex = self.settings.extractor
+        return level_quota(ex.n_features, ex.n_levels, ex.scale_factor)
+
+    def track(self, images=None, feats: Optional[FrameFeatures] = None, timestamp: float = 0.0) -> FrameMetrics:
+        """TrackMultiColSLAM (cSystem.cpp:182) + cTracking::Track (:237):
+        raw images [C, H, W] uint8, or the frame's FrameFeatures (the oracle
+        path of the tests)."""
+        return self.track_finish(self.track_begin(images=images, feats=feats, timestamp=timestamp))
+
+    def track_begin(self, images=None, feats: Optional[FrameFeatures] = None,
+                    timestamp: float = 0.0) -> _FrameHandle:
+        """First half of a frame: extraction, the bootstrap states inline,
+        or the fused tracking program's dispatch (no host sync)."""
+        t0 = time.perf_counter()
+        self.frame_id += 1
+        if feats is None:
+            feats = self._extract(images)
+        if self.state in (WORKING, LOST) and feats.valid.shape[1] != self.map_cfg.feats_per_cam:
+            # extracted with the init bank before the state advanced
+            feats, _ = downselect_features(feats, self.map_cfg.feats_per_cam, quotas=self._level_quotas())
+        m = FrameMetrics(self.frame_id, timestamp, self.state, self.last_pose.copy())
+        h = _FrameHandle(feats=feats, timestamp=timestamp, m=m, t0=t0)
+        if self.state in (NO_IMAGES_YET, NOT_INITIALIZED):
+            if int(feats.valid.sum()) > MIN_INIT_KPS:
+                self.ref_feats = feats
+                self.state = INITIALIZING
+            else:
+                self.state = NOT_INITIALIZED
+            h.done = True
+        elif self.state == INITIALIZING:
+            self._try_initialize(feats, timestamp)
+            h.done = True
+        else:
+            self._track_frame_begin(h)
+        h.begin_ms = (time.perf_counter() - t0) * 1e3
+        return h
+
+    def track_finish(self, h: _FrameHandle) -> FrameMetrics:
+        """Second half: read the packed result back, the fallback paths, the
+        bookkeeping and the keyframe decision."""
+        t0 = time.perf_counter()
+        m = h.m
+        if not h.done:
+            self._track_frame_finish(h)
+        self.last_feats = h.feats
+        m.state = self.state
+        m.pose = self.last_pose.copy()
+        if self.state == WORKING:
+            self._record_anchor(m)
+        m.track_ms = h.begin_ms + (time.perf_counter() - t0) * 1e3
+        self.trajectory.append(m)
+        return m
+
+    def _record_anchor(self, m: FrameMetrics):
+        """Anchor the frame's pose to its reference keyframe, so that
+        save_trajectory composes it with the keyframe's final pose."""
+        s = self.store
+        rk = self.ref_kf_id
+        if rk < 0 or not s.kf_valid[rk]:
+            return
+        m.ref_kf_frame = int(s.kf_frame_id[rk])
+        m.ref_kf = int(rk)
+        m.rel_pose = hom_to_cayley_np(np.linalg.inv(cayley_to_hom_np(s.kf_pose[rk])) @ cayley_to_hom_np(m.pose))
+
+    # ------------------------------------------------------------------
+    def _try_initialize(self, feats: FrameFeatures, timestamp: float):
+        sampler = None
+        if self.init_sampler is not None:
+            fid = self.frame_id
+            sampler = lambda cam, n: self.init_sampler(fid, cam, n)  # noqa: E731
+        res, n_matches = bootstrap(self.rig, self.ref_feats, feats, sampler=sampler,
+                                   generator=self.generator, match_fn=self.match_fn)
+        if res is None:
+            # baseline too small: KEEP the reference so parallax accumulates;
+            # re-snapshot only when the overlap collapses
+            if n_matches < 100 and int(feats.valid.sum()) > MIN_INIT_KPS:
+                self.ref_feats = feats
+            return
+        # the metric scale from the rig's baseline before committing the map
+        scale, _ = calibrate_metric_scale(self.rig, self.ref_feats, feats, res)
+        if scale != 1.0:
+            Mc = self.rig.Mc[res.leading_cam].cpu().numpy().astype(np.float64)
+            T21 = np.linalg.inv(np.linalg.inv(Mc) @ np.asarray(res.Mt2) @ Mc)
+            res = res._replace(points_cam=res.points_cam * scale,
+                               Mt2=_mt2_of_scale(self.rig, res.leading_cam, T21[:3, :3], T21[:3, 3], scale))
+        # init-bank downselect to the runtime capacity: triangulated features
+        # whose response also clears the runtime FAST threshold first
+        feat1 = np.asarray(res.feat1, np.int64)
+        feat2 = np.asarray(res.feat2, np.int64)
+        Xw = points_to_world(self.rig, res.leading_cam, res.points_cam)
+        Kc = self.map_cfg.feats_per_cam
+        if self.ref_feats.valid.shape[1] != Kc or feats.valid.shape[1] != Kc:
+            th_run = float(self.settings.extractor.fast_th)
+            r1 = self.ref_feats.response.reshape(-1).cpu().numpy()
+            r2 = feats.response.reshape(-1).cpu().numpy()
+            strong = (r1[feat1] >= th_run) & (r2[feat2] >= th_run)
+            quotas = self._level_quotas()
+            self.ref_feats, remap1 = downselect_features(self.ref_feats, Kc, keep=feat1[strong], quotas=quotas)
+            feats, remap2 = downselect_features(feats, Kc, keep=feat2[strong], quotas=quotas)
+            feat1 = remap1[feat1]
+            feat2 = remap2[feat2]
+            sel = (feat1 >= 0) & (feat2 >= 0) & strong
+            feat1, feat2, Xw = feat1[sel], feat2[sel], Xw[sel]
+        s = self.store
+        k1 = s.add_keyframe(np.zeros(6, np.float32), self.ref_feats, timestamp, self.frame_id - 1)
+        pose2 = hom_to_cayley(torch.tensor(np.asarray(res.Mt2), dtype=torch.float32)).numpy()
+        k2 = s.add_keyframe(pose2, feats, timestamp, self.frame_id)
+        new_ids = []
+        for i in range(len(Xw)):
+            f1, f2 = int(feat1[i]), int(feat2[i])
+            p = s.add_point(Xw[i].astype(np.float32), s.kf_desc[k1, f1], s.kf_dmask[k1, f1], first_kf=k1,
+                            normal=np.zeros(3, np.float32), min_dist=0.1, max_dist=25.0)
+            s.add_observation(k1, f1, p)
+            s.add_observation(k2, f2, p)
+            new_ids.append(p)
+        s.update_point_stats_many(np.asarray(new_ids))
+        # the reference's order (cTracking.cpp:513-701): cross-camera
+        # re-observation first, then global BA with only the first pose fixed
+        self.mapper.fuse_neighbors(k2)
+        self._global_ba()
+        self.mapper.run(k2, do_ba=False)
+        self.last_pose = s.kf_pose[k2].copy()
+        self.velocity = np.eye(4, dtype=np.float32)
+        self.last_kf_id = k2
+        self.frames_since_kf = 0
+        self.last_assign_global = s.kf_point[k2].copy()
+        self.ref_kf_tracked = int((s.kf_point[k2] >= 0).sum())
+        self.ref_kf_id = k2
+        self.state = WORKING
+
+    # ------------------------------------------------------------------
+    def _gather_points(self, pt_ids: np.ndarray, cap: int):
+        """The points' LocalPoints block on the device (at most `cap`; the
+        drops are counted and the first few logged) and the ids it holds."""
+        s = self.store
+        n = min(len(pt_ids), cap)
+        if n < len(pt_ids):
+            self._truncated_local_pts += len(pt_ids) - n
+            if self._truncated_local_pts <= 3 * (len(pt_ids) - n):
+                print(f"[multicol-slam] local-map gather truncated {len(pt_ids) - n} of "
+                      f"{len(pt_ids)} points (cap {cap})")
+        pt_ids = pt_ids[:n]
+
+        def put(a):
+            return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+        return LocalPoints(X=put(s.pt_X[pt_ids]), desc=put(s.pt_desc[pt_ids]),
+                           min_dist=put(s.pt_min_dist[pt_ids]), max_dist=put(s.pt_max_dist[pt_ids]),
+                           valid=torch.ones(n, dtype=torch.bool, device=self.device),
+                           normal=put(s.pt_normal[pt_ids])), pt_ids
+
+    def _track_frame_begin(self, h: _FrameHandle):
+        """Host prep and dispatch of the fused two-stage tracking program
+        (motion-model stage + local-map stage, one packed result)."""
+        s = self.store
+        pose_pred = self.last_pose
+        if self.settings.use_motion_model:
+            pose_pred = hom_to_cayley_np(cayley_to_hom_np(self.last_pose) @ self.velocity)
+        prev = self.last_assign_global
+        pt_ids = np.unique(prev[prev >= 0]) if prev is not None else np.empty(0, np.int64)
+        pt_ids = pt_ids[s.pt_valid[pt_ids]] if len(pt_ids) else pt_ids
+        local_pts = self._local_map_points(pt_ids)
+        if len(local_pts) < 10:
+            return    # no candidates: LOST in finish
+        # one gathered local-map block serves both stages
+        lp2, pt_ids2 = self._gather_points(local_pts, STAGE2_CAP)
+        ex = self.settings.extractor
+        h.packed = track_frame_fused(
+            self.mc6, self.intr, self.rig.cams, h.feats,
+            torch.as_tensor(pose_pred, dtype=torch.float32, device=self.device), lp2, lp2,
+            scale_factor=ex.scale_factor, n_levels=ex.n_levels, radius1=15.0, radius2=4.0,
+            th_desc=self.th_track, min_pose_inliers=MIN_POSE_INLIERS, match_fn=self.match_fn)
+        h.lp2, h.pt_ids2 = lp2, pt_ids2
+
+    def _track_frame_finish(self, h: _FrameHandle):
+        s = self.store
+        feats, m = h.feats, h.m
+        ex = self.settings.extractor
+        n_inl = 0
+        ok = False
+        assign_global = np.full(s.cfg.feats_per_kf, BAD_ID, np.int32)
+        if h.packed is not None:
+            _, n1, pose_f2, n_match2, n_inl, assign, inl = unpack_fused(h.packed.cpu().numpy())
+            if n_inl < MIN_TRACK_INLIERS and n1 < MIN_POSE_INLIERS:
+                # TrackPreviousFrame's coarse -> fine protocol (cTracking.cpp:
+                # 731-795): wide windows from the UNADVANCED last pose
+                packed = track_frame_fused(
+                    self.mc6, self.intr, self.rig.cams, feats,
+                    torch.as_tensor(self.last_pose, dtype=torch.float32, device=self.device), h.lp2, h.lp2,
+                    scale_factor=ex.scale_factor, n_levels=ex.n_levels, radius1=60.0, radius2=40.0,
+                    th_desc=self.th_track, min_pose_inliers=MIN_POSE_INLIERS, match_fn=self.match_fn)
+                _, _, pose_f2, n_match2, n_inl, assign, inl = unpack_fused(packed.cpu().numpy())
+            ok = n_inl >= MIN_TRACK_INLIERS
+        if ok:
+            self._finish_frame(pose_f2)
+            matched = (assign >= 0) & inl
+            assign_global[matched] = h.pt_ids2[assign[matched]]
+            s.pt_visible[h.pt_ids2] += 1    # mnVisible / mnFound
+            s.pt_found[np.unique(assign_global[assign_global >= 0])] += 1
+            m.n_matches = n_match2
+            m.n_inliers = n_inl
+            self.state = WORKING
+        else:
+            self.state = LOST
+        self.last_assign_global = assign_global
+        # lost: auto-reset a young map (cTracking.cpp:322-329), else relocalize
+        if self.state == LOST:
+            if s.kf_valid.sum() <= 3:
+                self.reset()
+            elif self._relocalize(feats, m):
+                self.state = WORKING
+            return
+        # keyframe decision (NeedNewKeyFrame, cTracking.cpp:897-946); the
+        # sequential mapper is always idle
+        self.frames_since_kf += 1
+        # no insertion within maxFrames of a relocalization (:904-905)
+        if (self.frame_id < self._last_reloc_frame + self.settings.max_frames
+                and int(s.kf_valid.sum()) > self.settings.max_frames):
+            return
+        c1 = self.frames_since_kf >= self.settings.min_frames
+        c2 = (n_inl < KF_REF_RATIO * max(self.ref_kf_tracked, 1)) and n_inl > KF_MIN_INLIERS
+        # curBaseline2MKF (:876-877, :928): farther than 0.2 from the
+        # reference keyframe
+        baseline = 0.0
+        if self.ref_kf_id >= 0:
+            baseline = float(np.linalg.norm(cayley_to_hom_np(self.last_pose)[:3, 3]
+                                            - cayley_to_hom_np(s.kf_pose[self.ref_kf_id])[:3, 3]))
+        if c1 and c2 and baseline > 0.2:
+            self._create_keyframe(feats, h.timestamp, assign_global, m.frame_id)
+            m.is_keyframe = True
+
+    def _finish_frame(self, new_pose: np.ndarray):
+        Mt_last = cayley_to_hom_np(self.last_pose)
+        Mt_new = cayley_to_hom_np(new_pose)
+        self.velocity = (np.linalg.inv(Mt_last) @ Mt_new).astype(np.float32)
+        self.last_pose = np.asarray(new_pose, np.float32)
+
+    def _local_map_points(self, seed_pts: np.ndarray) -> np.ndarray:
+        """UpdateReferenceKeyFrames + local points (cTracking.cpp:961-1130):
+        the keyframes that observe the tracked points (by vote), plus their
+        best covisible neighbours; the local map is all their points."""
+        s = self.store
+        if len(seed_pts) == 0:
+            ks = s.active_kfs()[-5:]
+        else:
+            votes = native.vote_counts(s.kf_point, s.kf_valid, seed_pts, s.cfg.max_points)
+            ks = np.nonzero(votes > 4)[0]
+            if len(ks) == 0:
+                ks = np.argsort(-votes)[:3]
+            ref = int(ks[np.argmax(votes[ks])])
+            self.ref_kf_id = ref
+            self.ref_kf_tracked = int((s.kf_point[ref] >= 0).sum())
+            neighbors = set()
+            for k in ks[:10]:
+                neighbors.update(s.best_covisible(int(k), 5))
+            if neighbors:
+                ks = np.unique(np.concatenate([ks, np.asarray(sorted(neighbors), np.int64)]))
+        pts = s.kf_point[ks[s.kf_valid[ks]]] if len(ks) else np.empty((0,), np.int64)
+        pts = np.unique(pts[pts >= 0]) if len(pts) else np.empty(0, np.int64)
+        return pts[s.pt_valid[pts]] if len(pts) else pts
+
+    def _create_keyframe(self, feats: FrameFeatures, timestamp: float, assign_global: np.ndarray,
+                         frame_id: int):
+        s = self.store
+        k = s.add_keyframe(self.last_pose, feats, timestamp, frame_id)
+        for f in np.nonzero(assign_global >= 0)[0]:
+            s.add_observation(k, int(f), int(assign_global[f]))
+        self.last_kf_id = k
+        self.frames_since_kf = 0
+        self.ref_kf_id = k
+        self.ref_kf_tracked = int((s.kf_point[k] >= 0).sum())
+        self.mapper.run(k)
+        # local BA may have moved the pose
+        self.last_pose = s.kf_pose[k].copy()
+        self.last_assign_global = s.kf_point[k].copy()
+
+    # ------------------------------------------------------------------
+    def _relocalize(self, feats: FrameFeatures, m: FrameMetrics) -> bool:
+        """Relocalisation (cTracking.cpp:1138-1338), the branch without a
+        vocabulary: candidates are the last keyframe and its 5 best
+        covisible ones (else the last 5 keyframes); for each, descriptor
+        matches to its map points (>= 15), non-central absolute-pose RANSAC
+        (>= 10 inliers), the weighted refit, and a confirming tracking stage
+        against the local map (>= 10 inliers). The first candidate that
+        passes wins."""
+        s = self.store
+        cands = []
+        lk = self.last_kf_id
+        if lk >= 0 and s.kf_valid[lk]:
+            cands = [int(lk)] + [int(j) for j in s.best_covisible(int(lk), 5)]
+        if not cands:
+            cands = [int(k) for k in s.active_kfs()[-5:]][::-1]
+        C, K, B = feats.desc.shape
+        cur_desc = feats.desc.reshape(C * K, B)
+        cur_rays = feats.rays.reshape(C * K, 3).cpu().numpy()
+        cur_valid = feats.valid.reshape(C * K).cpu().numpy()
+        Mc = self.rig.Mc.cpu().numpy()
+        Rc_all, tc_all = Mc[:, :3, :3], Mc[:, :3, 3]
+        ex = self.settings.extractor
+        for cand in cands:
+            fk = np.nonzero(s.kf_point[cand] >= 0)[0]
+            if len(fk) < 15:
+                continue
+            cdesc = torch.as_tensor(s.kf_desc[cand][fk], device=self.device)
+            d = hamming_matrix(cur_desc, cdesc).cpu().numpy()
+            d[~cur_valid] = 1e9
+            best = d.argmin(1)
+            ok = d.min(1) <= self.th_low
+            if ok.sum() < 15:
+                continue
+            sel = np.nonzero(ok)[0]
+            pts = s.kf_point[cand][fk[best[sel]]]
+            cam_idx = sel // K
+
+            def put(a):
+                return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=self.device)
+            Xw, rays, Rc, tc = put(s.pt_X[pts]), put(cur_rays[sel]), put(Rc_all[cam_idx]), put(tc_all[cam_idx])
+            valid = torch.ones(len(sel), dtype=torch.bool, device=self.device)
+            idx = (self.reloc_sampler(self.frame_id, len(sel)) if self.reloc_sampler is not None
+                   else sample_weighted(160, 6, valid, self.generator))
+            res = ransac_noncentral_pose(Xw, rays, Rc, tc, valid, idx=idx)
+            if int(res.n_inliers) < 10:
+                continue
+            # gpnp-style refit on the RANSAC inliers (cTracking.cpp:1292)
+            Mt_ref = refine_noncentral_pose(Xw, rays, Rc, tc, res.inliers.to(torch.float32))
+            pose = hom_to_cayley(Mt_ref.to(torch.float32))
+            # confirm by tracking the local map from the recovered pose
+            local_pts = self._local_map_points(np.unique(pts))
+            if len(local_pts) < 10:
+                continue
+            lp2, pt_ids2 = self._gather_points(local_pts, STAGE2_CAP)
+            out = track_stage(self.mc6, self.intr, self.rig.cams, feats, pose, lp2,
+                              scale_factor=ex.scale_factor, n_levels=ex.n_levels, radius=8.0,
+                              th_desc=self.th_track, match_fn=self.match_fn)
+            packed = out.packed.cpu().numpy()
+            ck = C * K
+            n_ok = int(packed[7])
+            if n_ok >= 10:
+                assign = packed[8:8 + ck].astype(np.int32)
+                inl = packed[8 + ck:8 + 2 * ck] > 0.5
+                self._last_reloc_frame = self.frame_id
+                self.last_pose = packed[:6].copy()
+                self.velocity = np.eye(4, dtype=np.float32)
+                ag = np.full(s.cfg.feats_per_kf, BAD_ID, np.int32)
+                matched = (assign >= 0) & inl
+                ag[matched] = pt_ids2[assign[matched]]
+                self.last_assign_global = ag
+                m.n_inliers = n_ok
+                return True
+        return False
+
+    # ------------------------------------------------------------------
+    def _global_ba(self):
+        """Global BA over every keyframe, the first fixed, at most 10 LM
+        iterations (the bootstrap's, its only caller while loop closing is
+        unported)."""
+        s = self.store
+        kfs = s.active_kfs()
+        if len(kfs) < 2:
+            return
+        prob = s.ba_problem(kfs[1:], kfs[:1])
+        if prob is None:
+            return
+        params, obs, free = self.mapper._problem_tensors(prob)
+        out, _ = bundle_adjust(params, obs, free, max_iters=10, cg_iters=20)
+        s.write_back(prob, poses=out.poses.cpu().numpy(), points=out.points.cpu().numpy())
+
+    # ------------------------------------------------------------------
+    def reset(self):
+        """cTracking::Reset (cTracking.cpp:1353-1401)."""
+        self.store = MapStore(self.map_cfg)
+        self.mapper = LocalMapper(self.store, self.rig, match_fn=self.match_fn)
+        self.state = NOT_INITIALIZED
+        self.ref_feats = None
+        self.last_assign_global = None
+        self.velocity = np.eye(4, dtype=np.float32)
+        self.ref_kf_id = -1
+        self._last_reloc_frame = -(10 ** 9)
+        self.frames_since_kf = 0
+
+    # ------------------------------------------------------------------
+    def save_trajectory(self, path: str):
+        save_lafida_trajectory(path, self.trajectory, store=self.store)
+
+    def save_metrics(self, path: str):
+        """Per-frame metrics as JSON lines, then one summary line."""
+        with open(path, "w") as f:
+            for m in self.trajectory:
+                f.write(json.dumps(dict(frame=m.frame_id, t=m.timestamp, state=m.state,
+                                        pose=[float(x) for x in m.pose], n_matches=m.n_matches,
+                                        n_inliers=m.n_inliers, track_ms=round(m.track_ms, 3),
+                                        keyframe=m.is_keyframe)) + "\n")
+            f.write(json.dumps(dict(summary=True, truncated_local_points=int(self._truncated_local_pts),
+                                    n_keyframes=int(self.store.kf_valid.sum()),
+                                    n_points=int(self.store.pt_valid.sum()))) + "\n")

@@ -74,6 +74,44 @@ def skew(v: torch.Tensor) -> torch.Tensor:
                         torch.stack([-y, x, zero], -1)], dim=-2)
 
 
+def essential_from_relative(M21: torch.Tensor) -> torch.Tensor:
+    """Essential matrix E = [t]_x R of a relative transform M21 (cam2 <- cam1,
+    as the reference's ComputeE builds it, misc.cpp:72-86)."""
+    return torch.matmul(skew(M21[..., :3, 3]), M21[..., :3, :3])
+
+
+def ray_epipolar_distance(ray1: torch.Tensor, E12: torch.Tensor, ray2: torch.Tensor) -> torch.Tensor:
+    """Epipolar distance between unit rays through E (misc.cpp:54-70):
+    |r2^T E r1| over the norm of both epipolar lines. Batched, broadcasts."""
+    Er1 = torch.einsum("...ij,...j->...i", E12, ray1)
+    Etr2 = torch.einsum("...ji,...j->...i", E12, ray2)
+    num = torch.abs(torch.sum(ray2 * Er1, dim=-1))
+    n1 = torch.sum(Er1[..., :2] ** 2, dim=-1)
+    n2 = torch.sum(Etr2[..., :2] ** 2, dim=-1)
+    return num / torch.sqrt(n1 + n2 + 1e-18)
+
+
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> quaternion [qx qy qz qw] (Shepperd: of the four
+    candidate constructions, the one with the largest leading term)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    cands = torch.stack([
+        torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], -1),
+        torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], -1),
+        torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], -1),
+        torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], -1),
+    ], dim=-2)                                                   # rows: [w, x, y, z]
+    diag = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22,
+                        1.0 - m00 - m11 + m22], -1)
+    best = torch.argmax(diag, dim=-1)
+    q = torch.gather(cands, -2, best[..., None, None].expand(*best.shape, 1, 4))[..., 0, :]
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    return torch.cat([q[..., 1:4], q[..., 0:1]], dim=-1)
+
+
 def triangulate_midpoint(o1, d1, o2, d2):
     """Midpoint triangulation of two rays (origin o, unit direction d):
     solve the 2x2 system for the ray depths, average the two closest points.

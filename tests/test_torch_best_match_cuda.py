@@ -33,6 +33,12 @@ CASES = {
     "T_chunk_plus_1_masked": (3, 400, 65, 32, False, True, False, 0.8),
     "T_16_chunks_plus_1": (3, 400, 4097, 32, True, False, False, 0.8),
     "Q_tile_plus_1": (3, 65, 4096, 32, False, False, False, 0.8),
+    # map-point fusion: the targets' keyframes x 3 cameras as one rig (J = 4
+    # and 32), one shared block of L map points
+    "fuse_C12_L64": (12, 400, 64, 32, True, False, False, 0.8),
+    "fuse_C12_L1024": (12, 400, 1024, 32, True, False, False, 0.8),
+    "fuse_C96_L64": (96, 400, 64, 32, True, False, False, 0.8),
+    "fuse_C96_L1024": (96, 400, 1024, 32, True, False, False, 0.8),
 }
 
 

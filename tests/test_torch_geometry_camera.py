@@ -102,6 +102,26 @@ def test_rot_hom_to_cayley_and_skew():
     np.testing.assert_array_equal(tgeo.skew(torch.tensor(v)).numpy(), np.asarray(jgeo.skew(jnp.asarray(v))))
 
 
+def test_essential_epipolar_and_quaternion():
+    """The mapping's epipolar gate and the trajectory writer's quaternion."""
+    rng = np.random.default_rng(6)
+    c6 = rng.normal(0, 0.5, (2, 4, 6)).astype(np.float32)
+    Mj, Mt = jgeo.cayley_to_hom(jnp.asarray(c6)), tgeo.cayley_to_hom(torch.tensor(c6))
+    Ej, Et = jgeo.essential_from_relative(Mj), tgeo.essential_from_relative(Mt)
+    _close(Ej, Et, rtol=1e-5, atol=1e-5)
+    r1 = rng.normal(size=(2, 4, 3)).astype(np.float32)
+    r2 = rng.normal(size=(2, 4, 3)).astype(np.float32)
+    r1 /= np.linalg.norm(r1, axis=-1, keepdims=True)
+    r2 /= np.linalg.norm(r2, axis=-1, keepdims=True)
+    _close(jgeo.ray_epipolar_distance(jnp.asarray(r1), Ej, jnp.asarray(r2)),
+           tgeo.ray_epipolar_distance(torch.tensor(r1), Et, torch.tensor(r2)), rtol=1e-5, atol=1e-5)
+    # every Shepperd branch: identity, then half-turns about x, y and z
+    R = np.concatenate([np.asarray(Mj)[..., :3, :3].reshape(-1, 3, 3),
+                        np.stack([np.eye(3), np.diag([1, -1, -1]), np.diag([-1, 1, -1]),
+                                  np.diag([-1, -1, 1])]).astype(np.float32)])
+    _close(jgeo.rot_to_quat(jnp.asarray(R)), tgeo.rot_to_quat(torch.tensor(R)), rtol=1e-5, atol=1e-6)
+
+
 def test_cam_indexed_projection_and_fit_inverse_poly():
     jrig, trig = _rig()
     rng = np.random.default_rng(5)

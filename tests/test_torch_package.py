@@ -31,8 +31,8 @@ def test_no_jax_or_yaml_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-# every module the port holds so far (the tracking step, then the map
-# bootstrap) -> its counterpart in the JAX package
+# every module the port holds so far (the tracking step, the map bootstrap,
+# then the sync system) -> its counterpart in the JAX package
 MODULES = {
     "convert": None, "models/camera": "models/camera", "models/rig": "models/rig",
     "ops/best_match": "ops/pallas_match", "ops/brief": "ops/brief", "ops/fast": "ops/fast",
@@ -41,7 +41,8 @@ MODULES = {
     "slam/tracking_kernels": "slam/tracking_kernels", "utils/config": "utils/config",
     "utils/geometry": "utils/geometry", "ops/ransac": "ops/ransac",
     "slam/initializer": "slam/initializer", "io/synthetic": "io/synthetic", "io/render": "io/render",
-    "device": None,
+    "device": None, "native": "native", "slam/map_store": "slam/map_store",
+    "slam/local_mapping": "slam/local_mapping", "slam/system": "slam/system", "io/trajectory": "io/trajectory",
 }
 
 
@@ -67,7 +68,8 @@ def _entry_points():
     from multicol_slam_tpu_torch.models.camera import OmniCamera
     from multicol_slam_tpu_torch.ops import fast, ransac
     from multicol_slam_tpu_torch.slam.features import ExtractorTables
-    from multicol_slam_tpu_torch.utils.config import ExtractorSettings
+    from multicol_slam_tpu_torch.slam.system import MultiColSLAM
+    from multicol_slam_tpu_torch.utils.config import ExtractorSettings, SlamSettings
 
     z = np.zeros
     return {
@@ -86,12 +88,19 @@ def _entry_points():
         "fast.border_mask": (fast.border_mask, lambda **kw: fast.border_mask(20, 20, 3, **kw)),
         "synthetic.make_synthetic_rig": (synthetic.make_synthetic_rig,
                                          lambda **kw: synthetic.make_synthetic_rig(2, **kw).Mc),
+        "synthetic.synthesize_features": (synthetic.synthesize_features, lambda **kw: synthetic.synthesize_features(
+            synthetic.make_synthetic_rig(2, device="cpu"), np.ones((4, 3)), z((4, 32), np.uint8), z(6), 8,
+            **kw).uv),
+        "MultiColSLAM": (MultiColSLAM, lambda **kw: MultiColSLAM(
+            synthetic.make_synthetic_rig(2, device=kw.get("device", "cuda")), SlamSettings(),
+            use_loop_closing=False, **kw).generator),
     }
 
 
 ENTRY_POINTS = ["OmniCamera.from_params", "ExtractorTables", "convert.rig_from_numpy",
                 "convert.local_points_from_numpy", "convert.frame_features_from_numpy",
-                "ransac.sample_indices", "fast.border_mask", "synthetic.make_synthetic_rig"]
+                "ransac.sample_indices", "fast.border_mask", "synthetic.make_synthetic_rig",
+                "synthetic.synthesize_features", "MultiColSLAM"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

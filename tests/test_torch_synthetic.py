@@ -99,3 +99,22 @@ def test_bootstrap_world_at_lafida_width_exact():
     a, b = trender.render_frame(tw, 3), jrender.render_frame(jw, 3)
     assert a.shape == (3, 480, 754)
     np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name,t", [("ring_circle", 0), ("ring_circle", 4), ("corridor_line", 6),
+                                    ("room_circle_noyaw", 2)])
+def test_synthesize_features(name, t):
+    """The oracle features of a frame (`SyntheticWorld.frame_features`): the
+    same landmarks in the same slots with the same descriptors (exactly:
+    the same generator draws, float32 projections that round alike), pixels
+    and rays within 1e-4."""
+    jw = jsynthetic.make_world(**WORLDS[name])
+    tw = convert.world_from_numpy(*(getattr(jw, k) for k in ARRAYS), jw.n_feats, jw.noise_px,
+                                  jw.seed, jw.max_vis_dist, _rig(jw.rig))
+    a = tw.frame_features(t, device="cpu")
+    b = jw.frame_features(t)
+    for k in ("response", "octave", "angle", "desc", "dmask", "valid"):
+        np.testing.assert_array_equal(getattr(a, k).numpy(), np.asarray(getattr(b, k)), err_msg=k)
+    np.testing.assert_allclose(a.uv.numpy(), np.asarray(b.uv), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(a.rays.numpy(), np.asarray(b.rays), rtol=0, atol=1e-4)
+    assert int(a.valid.sum()) > 50
