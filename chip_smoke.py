@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's tracking step, map bootstrap and sync system on
-one CUDA card.
+"""Drive the PyTorch port's tracking step, map bootstrap, sync system and
+loop closing on one CUDA card.
 
     python3 chip_smoke.py [--reloc-dump NPZ]
 
@@ -40,33 +40,55 @@ Phases, each reported on its own lines:
   7. bootstrap timing: ms per attempt, for its window match, for the
      scale calibration, and K1 / K2 against their plain versions at the
      bootstrap shape.
-  8. captured: K1 on the main path's own four launches (tracking stages 1
-     and 2, the bootstrap's forward and backward window match): P, the
-     pairs that pass the window and band; kernel == plain exactly; times.
+  8. captured: K1 on the main path's own launches (tracking stages 1 and
+     2, the bootstrap's forward and backward window match, the system's
+     last fusion, the loop closer's last Sim3-check and SearchAndFuse
+     projections): P, the pairs that pass the window and band; kernel ==
+     plain exactly; times.
   9. split: K1 (tracking stage 1, bootstrap forward) and K2 at every
      target chunk the kernel takes (64, 128, 256): exact at each, and the
      device time of each beside the wrappers' own pick.
  10. system: `MultiColSLAM.track(images=...)` over 60 rendered frames of the
-     same room world at full Lafida width, in sync mode (bootstrap, map
-     writes, fusion and global BA, tracking, keyframes, local mapping,
-     relocalization when lost). An instrumented run counts K1's launches
+     same room world at full Lafida width, in sync mode with loop closing
+     on, the default (bootstrap, map writes, fusion and global BA,
+     tracking, keyframes, local mapping, the loop closer's vocabulary; no
+     loop can close before 10 keyframes; relocalization when lost). An
+     instrumented run counts K1's launches
      at each caller (they must add up to the run's launches), times the
      stages and captures the last fusion launch's arguments (targets x
-     cameras of the map; checked in phase 8); its uninstrumented twin
-     gives the frame times. One line a frame; then the frame it
-     initialized on, frames tracked, keyframes, map points, ATE against the
-     world's poses, K1 launches by caller, times by stage, and gates on
-     them. The twin and a replay with the plain matcher must give the same
-     states, inliers and keyframes, and bit-identical keyframe poses. Then
+     cameras of the map; checked in phase 8) and gives the frame times
+     (its mapping stages synchronised). One line a frame; then the frame
+     it initialized on, frames tracked, keyframes, map points, ATE against
+     the world's poses, K1 launches by caller, times by stage, and gates on
+     them. A replay with the plain matcher must give the same states,
+     inliers and keyframes, and bit-identical keyframe poses. Then
      the relocalization branch on three frames against the final map;
      `--reloc-dump NPZ` writes that map and those frames' features for
      tests/torch_reloc_witness.py.
+ 11. loop: tests/test_loop_reloc.py's drift world (a 3 m circle, one
+     85-frame lap and a 50-frame revisit, 0.5 px noise) with oracle
+     features, 135 frames, fps 7.5. Recipe (A), the reference's own (the
+     256x192 synthetic rig, 150 features a camera), without and with loop
+     closing under three generator seeds: >= 1 loop and >= 120 frames
+     tracked in every run; the median keyframe ATE with loops <= the
+     median without / 1.5 and <= 0.08 m. Recipe (B) at full width (the
+     754x480 rig, 400 features a camera, a ceiling strip), loops on: an
+     instrumented run (K1 launches counted at every caller, the loop
+     closer's Sim3 check and SearchAndFuse included, adding up to the run's;
+     stage times: vocabulary training, each loop pass, CorrectLoop and its
+     commit phases, the essential graph's solve; the frame times; the
+     arguments of the last radius-10 and radius-6 launches, checked in
+     phase 8) and the plain-matcher replay, identical (states, inliers,
+     keyframes, loop edges, bit-identical keyframe poses); gates >= 1 loop,
+     >= 120 tracked, ATE <= 0.10 m. (A)'s six runs and (B)'s replay run side
+     by side in spawned worker processes (the runs are host-bound).
 Each time stands beside two bounds: the bytes at the HBM rate against the
 products of the P pairs that pass at the int8 tensor-core peak (what this
 run's data needs), and the dense one that counts every pair, as the TPU
 kernel computes them.
 Then one JSON line of kernels, and last {"ok": true, "device": {...}}.
-The order of the run: 1-5, 6-7, 10, then 8 and 9 on the captured launches.
+The order of the run: 1-5, 6-7, 10, 11, then 8 and 9 on the captured
+launches.
 Any failure raises and exits non-zero. Needs one card; no CPU fallback.
 """
 import json
@@ -541,22 +563,26 @@ def rot_deg(Ra, Rb):
     return float(np.degrees(np.arccos(np.clip((np.trace(Ra.T @ Rb) - 1.0) / 2.0, -1.0, 1.0))))
 
 
+def lafida_rig(device):
+    """The 754x480 Lafida-family rig (bench.py:51-62's fallback) on `device`."""
+    import torch
+    from multicol_slam_tpu_torch.models.camera import OmniCamera
+    from multicol_slam_tpu_torch.models.rig import MultiCamRig
+
+    cams = OmniCamera.from_params([POL] * C, [INVPOL] * C, [[1.0, 0.0, 0.0]] * C,
+                                  [[W / 2.0, H / 2.0]] * C, [[W, H]] * C, device=device)
+    return MultiCamRig.from_cayley(cams, torch.tensor(MC_CAYLEY, dtype=torch.float32, device=device))
+
+
 def build_bootstrap(dev):
     """The rig on the host (for rendering) and on the card, the world of
     bench.py:207-211, its first SYS_FRAMES frames and the extractor tables."""
-    import torch
     from multicol_slam_tpu_torch.io.render import render_frame
     from multicol_slam_tpu_torch.io.synthetic import make_world
-    from multicol_slam_tpu_torch.models.camera import OmniCamera
-    from multicol_slam_tpu_torch.models.rig import MultiCamRig
     from multicol_slam_tpu_torch.slam.features import ExtractorTables
     from multicol_slam_tpu_torch.utils.config import ExtractorSettings
 
-    def rig_on(device):
-        cams = OmniCamera.from_params([POL] * C, [INVPOL] * C, [[1.0, 0.0, 0.0]] * C,
-                                      [[W / 2.0, H / 2.0]] * C, [[W, H]] * C, device=device)
-        return MultiCamRig.from_cayley(cams, torch.tensor(MC_CAYLEY, dtype=torch.float32, device=device))
-
+    rig_on = lafida_rig
     settings = ExtractorSettings(n_features=400, n_levels=8, scale_factor=1.2, fast_th=20)
     t0 = time.perf_counter()
     world = make_world(n_points=3000, n_frames=SYS_FRAMES, n_cams=C, n_feats=400, noise_px=0.0,
@@ -941,7 +967,69 @@ def _capturing(fn, sink):
     return wrapped
 
 
-def run_system(dev, boot, match_fn, instrument):
+def _loop_fuse_match(fn, kernel, counts, sinks):
+    """The loop closer's fuse_match wrapped to count its K1 launches by use
+    (radius 10: the Sim3 check's projection; 6: SearchAndFuse) and keep the
+    arguments of the last launch of each."""
+    def wrapped(*args, **kw):
+        use = "loop_sim3_check" if float(args[6]) == 10.0 else "loop_search_and_fuse"
+        return _counted(_capturing(fn, sinks[use]), kernel, use, counts)(*args, **kw)
+    return wrapped
+
+
+def new_record():
+    """What an instrumented run records: K1 launches by caller, stage ms,
+    the last fusion launch's and the loop closer's last launches' arguments."""
+    return {"launches": {"tracking": 0, "bootstrap": 0, "fuse": 0, "relocalization": 0, "loop_sim3_check": 0,
+                         "loop_search_and_fuse": 0},
+            "ms": {"global_ba": [], "local_ba": [], "create_new_points": [], "fuse_neighbors": [], "loop_process": [],
+                   "vocab_train": [], "loop_correct": [], "eg_solve": []},
+            "fuse_args": [], "loop_args": {"loop_sim3_check": [], "loop_search_and_fuse": []},
+            "frame_launches": [], "map_size": []}
+
+
+def instrument(rec):
+    """Patch the sync pipeline's callers of K1 (the bootstrap's window
+    matches, the fused tracking program and its wide-window retry, fusion,
+    relocalization's confirming stage, the loop closer's projections) to
+    count their launches into rec, and its stages to time themselves
+    (synchronised before and after). Module-level names of the system, the
+    local mapper and the loop closer, which a reset does not replace.
+    Returns the undo list for `restore`."""
+    from multicol_slam_tpu_torch.ops.best_match import KERNEL
+    from multicol_slam_tpu_torch.slam import local_mapping as mapping_module
+    from multicol_slam_tpu_torch.slam import loop_closing as loop_module
+    from multicol_slam_tpu_torch.slam import system as system_module
+    from multicol_slam_tpu_torch.slam.local_mapping import LocalMapper
+    from multicol_slam_tpu_torch.slam.loop_closing import LoopCloser
+    from multicol_slam_tpu_torch.slam.system import MultiColSLAM
+
+    patched = []
+
+    def patch(owner, name, wrap):
+        patched.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, wrap(getattr(owner, name)))
+    counts, ms = rec["launches"], rec["ms"]
+    patch(system_module, "bootstrap", lambda f: _counted(f, KERNEL, "bootstrap", counts))
+    patch(system_module, "track_frame_fused", lambda f: _counted(f, KERNEL, "tracking", counts))
+    patch(system_module, "track_stage", lambda f: _counted(f, KERNEL, "relocalization", counts))
+    patch(mapping_module, "fuse_match", lambda f: _counted(_capturing(f, rec["fuse_args"]), KERNEL, "fuse", counts))
+    patch(loop_module, "fuse_match", lambda f: _loop_fuse_match(f, KERNEL, counts, rec["loop_args"]))
+    patch(loop_module, "build_vocabulary", lambda f: _timed(f, ms["vocab_train"]))
+    patch(MultiColSLAM, "_global_ba", lambda f: _timed(f, ms["global_ba"]))
+    for stage in ("fuse_neighbors", "create_new_points", "local_ba"):
+        patch(LocalMapper, stage, lambda f, stage=stage: _timed(f, ms[stage]))
+    for stage, key in (("process", "loop_process"), ("_correct", "loop_correct"), ("_eg_solve", "eg_solve")):
+        patch(LoopCloser, stage, lambda f, key=key: _timed(f, ms[key]))
+    return patched
+
+
+def restore(patched):
+    for owner, name, orig in reversed(patched):
+        setattr(owner, name, orig)
+
+
+def run_system(dev, boot, match_fn, instrument_it):
     """MultiColSLAM over the SYS_FRAMES rendered frames, sync mode. With
     `instrument`, the K1 launches are counted by caller where each caller
     calls (module-level names of the system and the local mapper, which a
@@ -951,55 +1039,52 @@ def run_system(dev, boot, match_fn, instrument):
     instrumentation. Returns the system, per-frame metrics and what was
     recorded."""
     import torch
-    from multicol_slam_tpu_torch.ops.best_match import KERNEL
-    from multicol_slam_tpu_torch.slam import local_mapping as mapping_module
-    from multicol_slam_tpu_torch.slam import system as system_module
-    from multicol_slam_tpu_torch.slam.local_mapping import LocalMapper
     from multicol_slam_tpu_torch.slam.map_store import MapConfig
     from multicol_slam_tpu_torch.slam.system import MultiColSLAM
     from multicol_slam_tpu_torch.utils.config import SlamSettings
 
     world, images, rig, settings, _ = boot
+    # loop closing on (the default): it trains its vocabulary on the third
+    # inserted keyframe; no loop can close before 10 keyframes
     slam = MultiColSLAM(rig, SlamSettings(fps=25.0, extractor=settings),
                         MapConfig(max_keyframes=64, max_points=20000, n_cams=C,
                                   feats_per_cam=settings.n_features, n_levels=settings.n_levels,
                                   scale_factor=settings.scale_factor, desc_bytes=B),
-                        use_loop_closing=False, async_mapping=False, device=dev, match_fn=match_fn)
-    rec = {"launches": {"tracking": 0, "bootstrap": 0, "fuse": 0, "relocalization": 0},
-           "ms": {"global_ba": [], "local_ba": [], "create_new_points": [], "fuse_neighbors": []},
-           "fuse_args": [], "frame_launches": [], "map_size": []}
-    patched = []
+                        async_mapping=False, device=dev, match_fn=match_fn)
+    return drive(slam, lambda t: dict(images=torch.tensor(images[t], device=dev), timestamp=float(world.timestamps[t])),
+                 SYS_FRAMES, instrument_it)
 
-    def patch(owner, name, wrap):
-        patched.append((owner, name, getattr(owner, name)))
-        setattr(owner, name, wrap(getattr(owner, name)))
-    if instrument:
-        counts, ms = rec["launches"], rec["ms"]
-        # the sync pipeline's callers of K1: the bootstrap's window matches,
-        # the fused tracking program (and its wide-window retry), fusion, and
-        # relocalization's confirming stage (the system's only track_stage)
-        patch(system_module, "bootstrap", lambda f: _counted(f, KERNEL, "bootstrap", counts))
-        patch(system_module, "track_frame_fused", lambda f: _counted(f, KERNEL, "tracking", counts))
-        patch(system_module, "track_stage", lambda f: _counted(f, KERNEL, "relocalization", counts))
-        patch(mapping_module, "fuse_match", lambda f: _counted(_capturing(f, rec["fuse_args"]), KERNEL, "fuse", counts))
-        patch(MultiColSLAM, "_global_ba", lambda f: _timed(f, ms["global_ba"]))
-        for stage in ("fuse_neighbors", "create_new_points", "local_ba"):
-            patch(LocalMapper, stage, lambda f, stage=stage: _timed(f, ms[stage]))
+
+def drive(slam, frame_args, n_frames, instrument_it):
+    """slam.track over n_frames frames (frame_args(t) -> track's keyword
+    arguments), K1's launch count set to 0 just before and read just after.
+    With `instrument_it`, the launches are counted by caller and must add up
+    to the run's (the frame times of that run include the instrumentation).
+    Returns the system, per-frame metrics and what was recorded."""
+    import torch
+    from multicol_slam_tpu_torch.ops.best_match import KERNEL
+
+    rec = new_record()
+    rec["loops_after"], rec["loop_edge_frames"] = [], []
+    patched = instrument(rec) if instrument_it else []
     frames = []
     KERNEL.launches = 0
     try:
-        for t in range(SYS_FRAMES):
+        for t in range(n_frames):
             before = KERNEL.launches
-            frames.append(slam.track(images=torch.tensor(images[t], device=dev),
-                                     timestamp=float(world.timestamps[t])))
+            frames.append(slam.track(**frame_args(t)))
             rec["frame_launches"].append(KERNEL.launches - before)
             rec["map_size"].append((int(slam.store.kf_valid.sum()), int(slam.store.pt_valid.sum())))
+            rec["loops_after"].append(slam.loop_closer.n_loops_closed if slam.loop_closer else 0)
+            if rec["loops_after"][-1] > (rec["loops_after"][-2] if t else 0):
+                # the closed edge's keyframes by frame (slots are recycled later)
+                s = slam.store
+                rec["loop_edge_frames"].append(tuple(int(s.kf_frame_id[j]) for j in s.loop_edges[-1]))
     finally:
-        for owner, name, orig in reversed(patched):
-            setattr(owner, name, orig)
+        restore(patched)
     torch.cuda.synchronize()
     rec["total_launches"] = KERNEL.launches
-    if instrument and sum(rec["launches"].values()) != KERNEL.launches:
+    if instrument_it and sum(rec["launches"].values()) != KERNEL.launches:
         raise AssertionError(f"K1 launches by caller {rec['launches']} do not add up to the "
                              f"{KERNEL.launches} launches of the run")
     return slam, frames, rec
@@ -1060,9 +1145,8 @@ def dump_relocalization(path, slam, frames, reloc, boot):
 def phase_system(dev, boot, card, reloc_dump=None):
     """The sync system on the card over SYS_FRAMES frames, its gates, and the
     plain-matcher replay. The instrumented run gives the K1 launches by
-    caller and the stage times; its uninstrumented twin gives the frame
-    times, and both must agree frame by frame. Returns what the kernels line
-    needs."""
+    caller, the stage times and the frame times; the replay must agree with
+    it frame by frame. Returns what the kernels line needs."""
     import torch
     from multicol_slam_tpu_torch.io.trajectory import ate_rmse, load_tum_trajectory, umeyama_align
     from multicol_slam_tpu_torch.ops.best_match import masked_best_match_cams, masked_best_match_cams_plain
@@ -1070,14 +1154,13 @@ def phase_system(dev, boot, card, reloc_dump=None):
     from multicol_slam_tpu_torch.utils.geometry import cayley_to_hom
 
     world = boot[0]
-    slam, frames, rec = run_system(dev, boot, masked_best_match_cams, instrument=True)
     t0 = time.perf_counter()
-    slam_u, frames_u, _ = run_system(dev, boot, masked_best_match_cams, instrument=False)
+    slam, frames, rec = run_system(dev, boot, masked_best_match_cams, instrument_it=True)
     wall = time.perf_counter() - t0
     s = slam.store
-    for t, (m, mu, n, (nk, npt)) in enumerate(zip(frames, frames_u, rec["frame_launches"], rec["map_size"])):
+    for t, (m, n, (nk, npt)) in enumerate(zip(frames, rec["frame_launches"], rec["map_size"])):
         log(f"system: frame {t:2d} state {m.state} inliers {m.n_inliers:4d} keyframe {int(m.is_keyframe)} "
-            f"keyframes {nk:2d} points {npt:4d} {mu.track_ms:9.3f} ms, K1 launches {n}")
+            f"keyframes {nk:2d} points {npt:4d} {m.track_ms:9.3f} ms, K1 launches {n}")
     states = [m.state for m in frames]
     working = [m for m in frames if m.state == WORKING]
     init_frame = next((m.frame_id for m in frames if m.state == WORKING), None)
@@ -1094,19 +1177,19 @@ def phase_system(dev, boot, card, reloc_dump=None):
         slam.save_trajectory(traj)
         t_est, p_est = load_tum_trajectory(traj)
     ate_kf = ate_rmse(t_est, p_est, world.timestamps, pos(world.poses))
-    ms_kf = [m.track_ms for m in frames_u if m.state == WORKING and m.is_keyframe]
-    ms_plain = [m.track_ms for m in frames_u if m.state == WORKING and not m.is_keyframe]
+    ms_kf = [m.track_ms for m in frames if m.state == WORKING and m.is_keyframe]
+    ms_plain = [m.track_ms for m in frames if m.state == WORKING and not m.is_keyframe]
     med = lambda xs: float(np.median(xs)) if xs else float("nan")  # noqa: E731
     stages = {k: [round(x, 3) for x in v] for k, v in rec["ms"].items()}
-    log(f"system: {SYS_FRAMES} frames of {C}x{W}x{H} in {wall:.3f} s (the uninstrumented run); initialized on "
+    log(f"system: {SYS_FRAMES} frames of {C}x{W}x{H} in {wall:.3f} s; initialized on "
         f"frame {init_frame}; {len(working)} of {SYS_FRAMES} frames tracked; keyframes inserted on frames "
         f"{kf_frames}; {n_kf} keyframes, {n_pt} map points at the end")
     log(f"system: ATE (Sim3-aligned, track-time poses of the {len(working)} tracked frames) {ate:.6f} m "
         f"(gate {SYS_ATE_GATE}); from the saved trajectory (keyframe-composed) {ate_kf:.6f} m")
     log(f"system: K1 launches by caller {rec['launches']} (total {rec['total_launches']}, none left over)")
     log(f"system: median ms a tracked frame {med(ms_plain):.3f} (no keyframe, {len(ms_plain)} frames), "
-        f"{med(ms_kf):.3f} (keyframe, {len(ms_kf)} frames); the uninstrumented run, host clock, the frame "
-        f"ends in a readback [{card}]")
+        f"{med(ms_kf):.3f} (keyframe, {len(ms_kf)} frames); host clock, the frame ends in a readback, its "
+        f"mapping stages synchronised by the instrumentation [{card}]")
     log(f"system: stage ms (the instrumented run, host clock, synchronised) {json.dumps(stages)} [{card}]")
     if init_frame is None or init_frame > SYS_INIT_BY:
         raise AssertionError(f"initialized on frame {init_frame}, gate {SYS_INIT_BY}")
@@ -1121,19 +1204,19 @@ def phase_system(dev, boot, card, reloc_dump=None):
     if not rec["fuse_args"]:
         raise AssertionError("no fusion launch captured")
 
-    # the uninstrumented twin and the plain matcher: the same run
-    slam_p, frames_p, _ = run_system(dev, boot, masked_best_match_cams_plain, instrument=False)
-    key = lambda fs: [(m.state, m.n_inliers, m.n_matches, m.is_keyframe) for m in fs]  # noqa: E731
-    for label, other, so in (("uninstrumented run", frames_u, slam_u.store),
-                             ("plain-matcher replay", frames_p, slam_p.store)):
-        if key(other) != key(frames):
-            diff = [i for i, (a, b) in enumerate(zip(key(frames), key(other))) if a != b]
-            raise AssertionError(f"{label} differs on frames {diff[:10]}")
-        if not (np.array_equal(so.kf_valid, s.kf_valid)
-                and np.array_equal(so.kf_pose[so.kf_valid], s.kf_pose[s.kf_valid])):
-            raise AssertionError(f"{label}: final keyframe poses differ")
-    log(f"system: the uninstrumented run and the plain-matcher replay identical (states, inliers, matches, "
-        f"keyframes per frame; {n_kf} keyframe poses bit-identical)")
+    # the plain matcher, uninstrumented: the same run
+    slam_p, frames_p, _ = run_system(dev, boot, masked_best_match_cams_plain, instrument_it=False)
+    failed = same_run("system: plain-matcher replay", run_record(slam, frames), run_record(slam_p, frames_p))
+    if failed:
+        raise AssertionError(failed[0])
+    log(f"system: the uninstrumented plain-matcher replay identical (states, inliers, matches, keyframes per "
+        f"frame; {n_kf} keyframe poses bit-identical)")
+    lc = slam.loop_closer
+    log(f"system: loop closing on: vocabulary of {lc.voc.n_words if lc.voc else 0} words trained in "
+        f"{stages['vocab_train']} ms (host k-majority; the idf pass on the card), {lc.n_loops_closed} loops closed "
+        f"(none can close before 10 keyframes) [{card}]")
+    if lc.voc is None or lc.n_loops_closed != 0:
+        raise AssertionError(f"vocabulary {lc.voc is not None}, {lc.n_loops_closed} loops in the system phase")
     launches = dict(rec["launches"])   # the main path's, before the relocalization check
     reloc = relocalize_frames(dev, slam, frames, boot[1], card)
     if reloc_dump:
@@ -1142,6 +1225,210 @@ def phase_system(dev, boot, card, reloc_dump=None):
     return dict(launches=launches, fuse=fuse, init_frame=init_frame, tracked=len(working), n_kf=n_kf,
                 n_pt=n_pt, ate=ate, ate_kf=ate_kf, ms_frame=med(ms_plain), ms_keyframe=med(ms_kf),
                 stages=stages, states=states)
+
+
+# the loop phase: tests/test_loop_reloc.py's drift world (one 85-frame lap of
+# a 3 m circle and a revisit; 0.5 px noise, 3 m visibility), oracle
+# features, 1 level, fps 7.5, sync mode. (A) is the reference's own loop
+# recipe on the 256x192 synthetic rig; (B) runs it at the system's width:
+# the 754x480 Lafida-family rig, 400 features a camera and a ceiling strip
+# for the up-looking camera. The JAX package on the CPU: (A) without loops
+# 134/135 tracked, keyframe ATE 0.0899 m; with loops 1 loop, 134 tracked,
+# 0.0399 m; (B) with loops 1 loop, 134 tracked, 22 keyframes, 1469 points,
+# 0.0495 m.
+LOOP_FRAMES = 135
+LOOP_RECIPES = {"A": dict(n_points=1500, n_feats=150, landmarks="path", max_points=8000),
+                "B": dict(n_points=3000, n_feats=400, landmarks="pathroom", max_points=20000)}
+LOOP_MIN_TRACKED = 120
+LOOP_A_GAIN = 1.5          # tests/test_loop_reloc.py:159: ATE with loops <= ATE without / 1.5
+# (A) runs under three seeds of the RANSAC generator and gates the median
+# keyframe ATE with loops against the median without (eval.py's
+# median-over-seeds protocol): one run's drift is a random walk, and on the
+# CPU the gain of one seed spread over 1.16-2.48x across seeds 0-5 (seed 0:
+# 0.0522 m without loops, 0.0449 m with), the medians 2.2x.
+LOOP_A_SEEDS = (0, 1, 2)
+LOOP_ATE_GATE = {"A": 0.08, "B": 0.10}   # twice the reference's
+
+
+def loop_world(dev, recipe, quiet=False):
+    """The drift world of a recipe, its features on the card, and the rig on
+    the card."""
+    from multicol_slam_tpu_torch.io.synthetic import make_synthetic_rig, make_world
+
+    r = LOOP_RECIPES[recipe]
+    if recipe == "A":
+        host, rig = make_synthetic_rig(C, device="cpu"), make_synthetic_rig(C, device=dev)
+    else:
+        host, rig = lafida_rig("cpu"), lafida_rig(dev)
+    t0 = time.perf_counter()
+    world = make_world(n_points=r["n_points"], n_frames=LOOP_FRAMES, n_cams=C, n_feats=r["n_feats"], noise_px=0.5,
+                       trajectory="circle_noyaw", radius=3.0, seed=7, period=85, max_vis_dist=3.0,
+                       landmarks=r["landmarks"], rig=host)
+    feats = [world.frame_features(t, device=dev) for t in range(LOOP_FRAMES)]
+    if not quiet:
+        log(f"loop: recipe ({recipe}): world and {LOOP_FRAMES} frames of oracle features ({C}x{r['n_feats']}) made "
+            f"on the host in {time.perf_counter() - t0:.2f} s")
+    return world, feats, rig
+
+
+def run_loop(dev, recipe, boot, loops, match_fn, instrument_it=False, seed=0):
+    """MultiColSLAM over a recipe's frames, sync mode, loop closing on or
+    off, its RANSAC generator seeded with `seed`."""
+    from multicol_slam_tpu_torch.slam.map_store import MapConfig
+    from multicol_slam_tpu_torch.slam.system import MultiColSLAM
+    from multicol_slam_tpu_torch.utils.config import ExtractorSettings, SlamSettings
+
+    world, feats, rig = boot
+    r = LOOP_RECIPES[recipe]
+    slam = MultiColSLAM(rig, SlamSettings(fps=7.5, extractor=ExtractorSettings(n_features=r["n_feats"], n_levels=1,
+                                                                               scale_factor=1.2)),
+                        MapConfig(max_keyframes=64, max_points=r["max_points"], n_cams=C, feats_per_cam=r["n_feats"],
+                                  n_levels=1, scale_factor=1.2),
+                        use_loop_closing=loops, device=dev, match_fn=match_fn, seed=seed)
+    t0 = time.perf_counter()
+    out = drive(slam, lambda t: dict(feats=feats[t], timestamp=float(world.timestamps[t])), LOOP_FRAMES,
+                instrument_it)
+    return out + (time.perf_counter() - t0,)
+
+
+def loop_summary(world, slam, frames, rec):
+    """Frames tracked, map size, loops and their edges, the keyframe ATE
+    (tests/test_loop_reloc._kf_ate) and the frame-time medians."""
+    from multicol_slam_tpu_torch.io.trajectory import ate_rmse
+    from multicol_slam_tpu_torch.slam.system import WORKING
+
+    s = slam.store
+    ks = s.active_kfs()
+    order = np.argsort(s.kf_timestamp[ks])
+    ate = float(ate_rmse(s.kf_timestamp[ks][order], s.kf_pose[ks][order, 3:6], world.timestamps,
+                         world.poses[:, 3:6]))
+    loops_after = rec["loops_after"]
+    loop_frames = [t for t in range(len(frames)) if loops_after[t] > (loops_after[t - 1] if t else 0)]
+    ok = [m for m in frames if m.state == WORKING]
+    med = lambda xs: float(np.median(xs)) if xs else float("nan")  # noqa: E731
+    return dict(tracked=len(ok), n_kf=int(s.kf_valid.sum()), n_pt=int(s.pt_valid.sum()),
+                loops=slam.loop_closer.n_loops_closed if slam.loop_closer else 0,
+                edges=[(int(a), int(b)) for a, b in s.loop_edges], edge_frames=rec["loop_edge_frames"],
+                loop_frames=loop_frames, ate_kf=ate,
+                ms_frame=med([m.track_ms for m in ok if not m.is_keyframe]),
+                ms_keyframe=med([m.track_ms for m in ok if m.is_keyframe and m.frame_id not in loop_frames]),
+                ms_loop=med([m.track_ms for m in frames if m.frame_id in loop_frames]))
+
+
+def summary_text(u):
+    return (f"{u['tracked']}/{LOOP_FRAMES} tracked, {u['n_kf']} keyframes, {u['n_pt']} points, {u['loops']} loops "
+            f"(edges {u['edges']}, keyframes of frames {u['edge_frames']}, closed on frames {u['loop_frames']}), "
+            f"keyframe ATE {u['ate_kf']:.6f} m")
+
+
+def run_record(slam, frames):
+    """What two runs of one recipe must share: states, inliers, matches and
+    keyframes frame by frame, the keyframe slots, their poses and the loop
+    edges (host arrays, so that a worker process can return them)."""
+    s = slam.store
+    return dict(key=[(m.state, m.n_inliers, m.n_matches, m.is_keyframe) for m in frames],
+                kf_valid=s.kf_valid.copy(), kf_pose=s.kf_pose[s.kf_valid].copy(), loop_edges=list(s.loop_edges))
+
+
+def same_run(label, ra, rb):
+    """What differs between two run records (empty: the same run, keyframe
+    poses bit-identical)."""
+    if ra["key"] != rb["key"]:
+        diff = [i for i, (x, y) in enumerate(zip(ra["key"], rb["key"])) if x != y]
+        return [f"{label} differs on frames {diff[:10]}"]
+    if not (np.array_equal(ra["kf_valid"], rb["kf_valid"]) and ra["loop_edges"] == rb["loop_edges"]
+            and np.array_equal(ra["kf_pose"], rb["kf_pose"])):
+        return [f"{label}: final keyframes, loop edges or keyframe poses differ"]
+    return []
+
+
+def loop_worker(job):
+    """One run of a loop recipe in a process of its own on the card (the
+    runs are host-bound, so the recipe's runs share the card side by side):
+    its summary, K1 launches (counted in the process, from 0) and record."""
+    import torch
+    from multicol_slam_tpu_torch.ops.best_match import masked_best_match_cams, masked_best_match_cams_plain
+
+    recipe, loops, seed, plain, device = job
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    boot = loop_world(dev, recipe, quiet=True)
+    slam, frames, rec, wall = run_loop(dev, recipe, boot, loops,
+                                       masked_best_match_cams_plain if plain else masked_best_match_cams, seed=seed)
+    return dict(loop_summary(boot[0], slam, frames, rec), launches=rec["total_launches"], wall=wall, seed=seed,
+                record=run_record(slam, frames))
+
+
+def phase_loop(dev, card):
+    """Loop closing on the card. Side by side in worker processes: recipe
+    (A) without and with loops under LOOP_A_SEEDS, and recipe (B)'s
+    plain-matcher replay. Then, alone, (B) at full width with loops,
+    instrumented (K1 launches by caller, the loop closer's included, adding
+    up to the run's; stage and frame times; the arguments of the last
+    Sim3-check and SearchAndFuse launches); the replay must be identical to
+    it. Every recipe runs before a failed gate raises."""
+    import concurrent.futures
+    import multiprocessing
+
+    from multicol_slam_tpu_torch.ops.best_match import masked_best_match_cams
+
+    jobs = [("A", loops, seed, False, str(dev)) for seed in LOOP_A_SEEDS for loops in (False, True)]
+    jobs.append(("B", True, 0, True, str(dev)))
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(len(jobs), mp_context=multiprocessing.get_context("spawn")) as pool:
+        results = list(pool.map(loop_worker, jobs))
+    log(f"loop: {len(jobs)} runs side by side in worker processes (recipe (A) x {len(LOOP_A_SEEDS)} seeds x loops "
+        f"off / on, recipe (B)'s plain-matcher replay) in {time.perf_counter() - t0:.3f} s")
+    runs = {False: [], True: []}
+    for (_, loops, seed, _, _), u in zip(jobs[:-1], results):
+        runs[loops].append(u)
+        log(f"loop: recipe (A), seed {seed}, loops {'on' if loops else 'off'}: {summary_text(u)}; K1 launches "
+            f"{u['launches']}; {u['wall']:.3f} s side by side; median ms a frame {u['ms_frame']:.3f}, a keyframe "
+            f"{u['ms_keyframe']:.3f}, the loop's frame {u['ms_loop']:.3f} (host clock, {len(jobs)} processes "
+            f"sharing the host) [{card}]")
+    ate = {k: float(np.median([r["ate_kf"] for r in v])) for k, v in runs.items()}
+    log(f"loop: recipe (A): median keyframe ATE over seeds {list(LOOP_A_SEEDS)} {ate[True]:.6f} m with loops vs "
+        f"{ate[False]:.6f} m without, {ate[False] / ate[True]:.3f}x (gate {LOOP_A_GAIN}x, and <= "
+        f"{LOOP_ATE_GATE['A']} m); by seed "
+        + ", ".join(f"{a['ate_kf'] / b['ate_kf']:.3f}x" for a, b in zip(runs[False], runs[True])))
+    failed = []
+    if min(r["loops"] for r in runs[True]) < 1 or min(r["tracked"] for v in runs.values() for r in v) < LOOP_MIN_TRACKED:
+        failed.append(f"recipe (A): loops {[r['loops'] for r in runs[True]]}, tracked "
+                      f"{[r['tracked'] for v in runs.values() for r in v]}")
+    if not (ate[True] <= ate[False] / LOOP_A_GAIN and ate[True] <= LOOP_ATE_GATE["A"]):
+        failed.append(f"recipe (A): median ATE {ate[True]} with loops, {ate[False]} without")
+
+    boot_b = loop_world(dev, "B")
+    slam, frames, rec, wall = run_loop(dev, "B", boot_b, True, masked_best_match_cams, instrument_it=True)
+    u = loop_summary(boot_b[0], slam, frames, rec)
+    lc = slam.loop_closer
+    stages = {k: [round(x, 3) for x in v] for k, v in rec["ms"].items()}
+    log(f"loop: recipe (B), {C}x{W}x{H}, loops on: {summary_text(u)}; {wall:.3f} s")
+    log(f"loop: recipe (B): K1 launches by caller {rec['launches']} (total {rec['total_launches']}, none left over)")
+    log(f"loop: recipe (B): median ms a tracked frame {u['ms_frame']:.3f} (no keyframe), {u['ms_keyframe']:.3f} "
+        f"(a keyframe without a loop), {u['ms_loop']:.3f} (the loop's frame); host clock, the mapping and loop "
+        f"stages synchronised by the instrumentation [{card}]")
+    log(f"loop: recipe (B): stage ms (the instrumented run, host clock, synchronised) {json.dumps(stages)}; "
+        f"CorrectLoop's commit phases {[round(x, 3) for x in lc.locked_phase_ms]} ms; vocabulary of "
+        f"{lc.voc.n_words} words [{card}]")
+    if u["loops"] < 1 or u["tracked"] < LOOP_MIN_TRACKED or not u["ate_kf"] <= LOOP_ATE_GATE["B"]:
+        failed.append(f"recipe (B): {summary_text(u)}; gates 1 loop, {LOOP_MIN_TRACKED} tracked, "
+                      f"{LOOP_ATE_GATE['B']} m")
+    for key in ("loop_sim3_check", "loop_search_and_fuse", "tracking", "fuse"):
+        if rec["launches"][key] == 0 or (key.startswith("loop") and not rec["loop_args"][key]):
+            failed.append(f"recipe (B): no K1 launch of '{key}': {rec['launches']}")
+    failed += same_run("recipe (B) plain-matcher replay", run_record(slam, frames), results[-1]["record"])
+    if failed:
+        raise AssertionError("; ".join(failed))
+    log(f"loop: recipe (B): the uninstrumented plain-matcher replay identical (states, inliers, matches, "
+        f"keyframes per frame, loop edges {slam.store.loop_edges}; {u['n_kf']} keyframe poses bit-identical)")
+    strip = lambda r: {k: v for k, v in r.items() if k != "record"}  # noqa: E731
+    return dict(launches={"loop_A_off": sum(r["launches"] for r in runs[False]),
+                          "loop_A_on": sum(r["launches"] for r in runs[True]),
+                          **{f"loop_B_{k}": v for k, v in rec["launches"].items()}},
+                A=[strip(r) for r in runs[True]], A_off=[strip(r) for r in runs[False]], A_median_ate=ate, B=u,
+                stages=stages, captured={k: v[-1] for k, v in rec["loop_args"].items()})
 
 
 def main(argv=None):
@@ -1183,10 +1470,14 @@ def main(argv=None):
     out = phase_bootstrap(dev, boot)
     bt = phase_bootstrap_timing(dev, boot, out, card)
     system = phase_system(dev, boot, card, args.reloc_dump)
+    loop = phase_loop(dev, card)
     captured = phase_captured(dev, [("tracking stage 1", cap_track[0]), ("tracking stage 2", cap_track[1]),
                                     ("bootstrap forward", out["captured"][0]),
                                     ("bootstrap backward", out["captured"][1]),
-                                    ("system fusion", system["fuse"])], card)
+                                    ("system fusion", system["fuse"]),
+                                    ("loop Sim3 check, radius 10", loop["captured"]["loop_sim3_check"]),
+                                    ("loop SearchAndFuse, radius 6", loop["captured"]["loop_search_and_fuse"])],
+                              card)
     sweep = phase_split([
         ("K1 tracking stage 1", masked_best_match_cams, masked_best_match_cams_plain, cap_track[0]),
         ("K1 bootstrap forward", masked_best_match_cams, masked_best_match_cams_plain, out["captured"][0]),
@@ -1204,9 +1495,9 @@ def main(argv=None):
         "route": "cuda",
         "source": "multicol_slam_tpu_torch/csrc/best_match.cu",
         "replaces": "multicol_slam_tpu/ops/pallas_match.py:200",
-        "launches": launches + out["launches"] + sum(system["launches"].values()),
+        "launches": launches + out["launches"] + sum(system["launches"].values()) + sum(loop["launches"].values()),
         "launches_by_path": {"tracking": launches, "bootstrap": out["launches"],
-                             **{f"system_{k}": v for k, v in system["launches"].items()}},
+                             **{f"system_{k}": v for k, v in system["launches"].items()}, **loop["launches"]},
         "max_abs_err": max_err,
         "ms": tk["ms"],
         "plain_ms": tk["plain_ms"],
@@ -1226,6 +1517,9 @@ def main(argv=None):
         "split_sweep": [r for r in sweep if r["launch"].startswith("K1")],
         "system": {k: system[k] for k in ("init_frame", "tracked", "n_kf", "n_pt", "ate", "ate_kf", "ms_frame",
                                           "ms_keyframe")},
+        "loop": {"A_off": loop["A_off"], "A_on": loop["A"], "A_median_ate": {"off": loop["A_median_ate"][False],
+                                                                            "on": loop["A_median_ate"][True]},
+                 "B": loop["B"], "B_stages": loop["stages"]},
     }, {
         "name": "masked_best_match",
         "route": "cuda",

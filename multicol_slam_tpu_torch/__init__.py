@@ -12,7 +12,10 @@ Ported so far:
   `slam.initializer.bootstrap` (`match_window_frames`, `ops.ransac.ransac_essential`,
   the CheckRT and parallax gates), `calibrate_metric_scale` and
   `slam.features.downselect_features`; and the synthetic world and renderer
-  (`io.synthetic`, `io.render`) that feed it.
+  (`io.synthetic`, `io.render`) that feed it;
+- the running system in sync mode, `slam.system.MultiColSLAM.track`: the
+  map store, local mapping and BA after each keyframe, then loop closing
+  (`slam.loop_closing`, `models.vocab`), and relocalization when LOST.
 
 TPU kernels of the reference (every `pl.pallas_call`) and their state here:
 

@@ -15,6 +15,7 @@ from multicol_slam_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from multicol_slam_tpu_torch.io.synthetic import SyntheticWorld
 from multicol_slam_tpu_torch.models.camera import OmniCamera
 from multicol_slam_tpu_torch.models.rig import MultiCamRig
+from multicol_slam_tpu_torch.models.vocab import Vocabulary
 from multicol_slam_tpu_torch.slam.features import FrameFeatures
 from multicol_slam_tpu_torch.slam.map_store import MapConfig, MapStore
 from multicol_slam_tpu_torch.slam.tracking_kernels import LocalPoints
@@ -68,10 +69,13 @@ def world_from_numpy(points, descs, poses, timestamps, n_feats, noise_px, seed, 
                           int(n_feats), float(noise_px), int(seed), float(max_vis_dist))
 
 
-def map_store_from_numpy(cfg: dict, arrays: dict, n_kf: int, n_pt_alloc: int, free_kf, free_pt) -> MapStore:
+def map_store_from_numpy(cfg: dict, arrays: dict, n_kf: int, n_pt_alloc: int, free_kf, free_pt,
+                         loop_edges=(), covis_cache=None) -> MapStore:
     """A reference `MapStore` -> the port's: `cfg` its MapConfig's fields
     (`dataclasses.asdict`), `arrays` its kf_* and pt_* arrays, then its
-    slot counters and free lists. Every array is copied."""
+    slot counters, free lists, closed loops and covisibility cache
+    (keyframe -> counts; its entries may be up to a keyframe stale, and a
+    store answers covisibility queries from it). Every array is copied."""
     store = MapStore(MapConfig(**cfg))
     for name, a in arrays.items():
         old = getattr(store, name)
@@ -80,4 +84,14 @@ def map_store_from_numpy(cfg: dict, arrays: dict, n_kf: int, n_pt_alloc: int, fr
         setattr(store, name, np.array(a, dtype=old.dtype))
     store.n_kf, store.n_pt_alloc = int(n_kf), int(n_pt_alloc)
     store._free_kf, store._free_pt = [int(k) for k in free_kf], [int(p) for p in free_pt]
+    store.loop_edges = [(int(a), int(b)) for a, b in loop_edges]
+    store._covis_cache = {int(k): np.array(v) for k, v in (covis_cache or {}).items()}
     return store
+
+
+def vocabulary_from_numpy(k, depth, node_desc, children, is_leaf, word_id, word_weight, node_level) -> Vocabulary:
+    """A reference `Vocabulary`'s fields -> the port's (host numpy on both
+    sides; the descent's device tables are made at first use)."""
+    return Vocabulary(int(k), int(depth), np.array(node_desc, np.uint8), np.array(children, np.int32),
+                      np.array(is_leaf, bool), np.array(word_id, np.int32), np.array(word_weight, np.float32),
+                      np.array(node_level, np.int32))

@@ -1,6 +1,7 @@
-"""Batched RANSAC on unit rays (port of `multicol_slam_tpu/ops/ransac.py`):
-the essential-matrix relative pose of the map bootstrap and the non-central
-absolute pose of relocalization; the Sim3 solver of loop closing waits.
+"""Batched RANSAC (port of `multicol_slam_tpu/ops/ransac.py`): the
+essential-matrix relative pose of the map bootstrap, the non-central
+absolute pose of relocalization, and Horn's closed-form Sim3 of loop
+closing.
 
 A fixed batch of S hypotheses: every minimal problem is one batched solve
 (8-point SVD, or the non-central DLT on rays with a Procrustes projection),
@@ -13,7 +14,9 @@ explicitly, or a `torch.Generator` to draw them from.
 
 SVD: the sign of a singular vector, the order of the four (R, t) candidates
 and the degenerate hypotheses (a sample with a repeated index) may differ
-from LAPACK's; E and the set of candidates do not. Compare the winner.
+from LAPACK's; E and the set of candidates do not. Compare the winner. The
+same holds for Horn's eigenvector: q and -q give one R, and only a
+near-degenerate sample (three almost collinear points) may pick another.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from multicol_slam_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from multicol_slam_tpu_torch.utils.geometry import skew, triangulate_midpoint
+from multicol_slam_tpu_torch.utils.geometry import quat_to_rot, skew, triangulate_midpoint
 
 
 def sample_indices(n_hyp: int, sample_size: int, n_data: int,
@@ -238,3 +241,69 @@ def refine_noncentral_pose(X: torch.Tensor, rays: torch.Tensor, Rc: torch.Tensor
     (weights w [N] in [0, 1]). Returns Mt [4, 4] body -> world."""
     R, t = _noncentral_dlt(X[None], rays[None], Rc[None], tc[None], w[None])
     return _body_to_world(R[0], t[0])
+
+
+# ---------------------------------------------------------------------------
+# Horn's closed-form Sim3 (loop closing)
+# ---------------------------------------------------------------------------
+
+def horn_sim3(P: torch.Tensor, Q: torch.Tensor, with_scale: bool = True):
+    """Closed-form similarity Q ~ s R P + t (Horn's quaternion method, the
+    reference's cSim3Solver::computeT, cSim3Solver.cpp:286-371), batched over
+    leading dims: P, Q [..., m, 3]. Returns (R [..., 3, 3], t [..., 3], s [...])."""
+    cP = P.mean(dim=-2, keepdim=True)
+    cQ = Q.mean(dim=-2, keepdim=True)
+    Pc, Qc = P - cP, Q - cQ
+    M = torch.einsum("...mi,...mj->...ij", Pc, Qc)      # S_ab = sum_m P_a Q_b
+    Sxx, Sxy, Sxz = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    Syx, Syy, Syz = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    Szx, Szy, Szz = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    # Horn's symmetric 4x4 N: its top eigenvector is the optimal quaternion
+    N = torch.stack([
+        torch.stack([Sxx + Syy + Szz, Syz - Szy, Szx - Sxz, Sxy - Syx], -1),
+        torch.stack([Syz - Szy, Sxx - Syy - Szz, Sxy + Syx, Szx + Sxz], -1),
+        torch.stack([Szx - Sxz, Sxy + Syx, -Sxx + Syy - Szz, Syz + Szy], -1),
+        torch.stack([Sxy - Syx, Szx + Sxz, Syz + Szy, -Sxx - Syy + Szz], -1),
+    ], dim=-2)
+    q = torch.linalg.eigh(N).eigenvectors[..., :, -1]   # [w, x, y, z]
+    R = quat_to_rot(torch.stack([q[..., 1], q[..., 2], q[..., 3], q[..., 0]], -1))
+    if with_scale:
+        # symmetric scale (Horn section 2E): s = sqrt(sum |Qc|^2 / sum |Pc|^2)
+        s = torch.sqrt(torch.sum(Qc * Qc, dim=(-2, -1)) / (torch.sum(Pc * Pc, dim=(-2, -1)) + 1e-12))
+    else:
+        s = torch.ones(P.shape[:-2], dtype=P.dtype, device=P.device)
+    t = cQ[..., 0, :] - s[..., None] * torch.einsum("...ij,...j->...i", R, cP[..., 0, :])
+    return R, t, s
+
+
+class Sim3Result(NamedTuple):
+    R: torch.Tensor          # [3, 3]
+    t: torch.Tensor          # [3]
+    s: torch.Tensor          # scalar
+    inliers: torch.Tensor    # [N] bool
+    n_inliers: torch.Tensor  # scalar
+
+
+def ransac_sim3(
+    P: torch.Tensor,
+    Q: torch.Tensor,
+    valid: torch.Tensor,
+    err_fn,
+    n_hyp: int = 300,
+    with_scale: bool = True,
+    generator: Optional[torch.Generator] = None,
+    idx: Optional[torch.Tensor] = None,
+) -> Sim3Result:
+    """Sim3 RANSAC on 3-point samples (cSim3Solver: 3-point minimal sets, at
+    most 300 iterations), all hypotheses at once. err_fn(R [S, 3, 3],
+    t [S, 3], s [S]) -> inlier mask [S, N]: the caller scores by reprojection
+    through each observation's camera (cSim3Solver.cpp:374-416). The
+    hypotheses are `idx [S, 3]` when given, else drawn from `generator`."""
+    if idx is None:
+        idx = sample_indices(n_hyp, 3, P.shape[0], generator, P.device)
+    idx = idx.to(P.device).long()
+    R, t, s = horn_sim3(P[idx], Q[idx], with_scale)
+    inl = err_fn(R, t, s) & valid[None]
+    counts = inl.sum(dim=1)
+    best = torch.argmax(counts)
+    return Sim3Result(R[best], t[best], s[best], inl[best], counts[best])

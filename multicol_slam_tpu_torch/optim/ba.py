@@ -1,25 +1,40 @@
-"""BA entry points (port of `multicol_slam_tpu/optim/ba.py`: the pose-only,
-local, global, structure-only and self-calibrating modes; the Sim3 and
-essential-graph solvers of loop closing wait).
+"""BA entry points (port of `multicol_slam_tpu/optim/ba.py`).
 
-Every mode is the same (params, observations, free mask) structure solved
-by optim/lm.py; the mode chooses only the masks and the robust-kernel
-constants."""
+The pose-only, local, global, structure-only and self-calibrating modes are
+the same (params, observations, free mask) structure solved by
+optim/lm.py; the mode chooses only the masks and the robust-kernel
+constants. Loop closing adds two Gauss-Newton solvers:
+
+  optimize_sim3            ~ cOptimizerLoopStuff::OptimizeSim3 (:63-271)
+  optimize_essential_graph ~ OptimizeEssentialGraph (:273-520)
+
+Their Jacobians are forward-mode autodiff (`torch.func`), as the
+reference's `jax.jacfwd`; the essential graph's sums over edges are the
+deterministic segment sums of optim/lm.py (a scatter-add on CUDA adds in
+atomic order)."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+from torch.func import jacfwd, jvp, vmap
 
 from multicol_slam_tpu_torch.optim.lm import (
-    LMConfig, lm_solve, lm_solve_interruptible, pose_only_solve,
+    LMConfig, _segsum, lm_solve, lm_solve_interruptible, pose_only_solve, segments,
 )
-from multicol_slam_tpu_torch.optim.problem import BAParams, FreeMask, Observations, residuals_only
+from multicol_slam_tpu_torch.optim.problem import (
+    BAParams, FreeMask, Observations, intr_project, residuals_only,
+)
+from multicol_slam_tpu_torch.utils.geometry import (
+    cayley_to_hom, hom_inverse, sim3_apply, sim3_compose, sim3_exp, sim3_inverse, sim3_log, transform_points,
+)
 
 CHI2_BA = 5.991                      # Huber sqrt(5.991) in BA
 POSE_HUBER = 1.345 * 2.0             # cOptimizer.cpp:344 (huberMultiplier = 2)
 CHI2_POSE = POSE_HUBER * POSE_HUBER  # outlier demotion threshold
+SIM3_HUBER = 1.345 * 4.0
+SIM3_CHI2 = 9.210                    # the inlier gate of both Sim3 edges
 
 
 def pose_optimization(params: BAParams, obs: Observations):
@@ -70,3 +85,177 @@ def prune_observations(params: BAParams, obs: Observations, chi2_th: float = CHI
     r, z = residuals_only(params, obs)
     chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
     return obs.valid & (chi2 <= chi2_th) & (z > 0)
+
+
+# ---------------------------------------------------------------------------
+# Sim3 of a keyframe pair (the loop's geometric check)
+# ---------------------------------------------------------------------------
+
+class Sim3Obs(NamedTuple):
+    """Matched map points of two MultiKeyFrames, each with the camera that
+    observes it (cOptimizerLoopStuff.cpp:63-271: the forward edge projects
+    the KF2 point through S12 into KF1's camera, the inverse edge the KF1
+    point through S12^-1 into KF2's camera)."""
+
+    X1: torch.Tensor            # [N, 3] points in KF1's body frame
+    X2: torch.Tensor            # [N, 3] points in KF2's body frame
+    uv1: torch.Tensor           # [N, 2] measured pixels in KF1 (cam1)
+    uv2: torch.Tensor           # [N, 2] measured pixels in KF2 (cam2)
+    cam1: torch.Tensor          # [N] int
+    cam2: torch.Tensor          # [N] int
+    inv_sigma2_1: torch.Tensor  # [N]
+    inv_sigma2_2: torch.Tensor  # [N]
+    valid: torch.Tensor         # [N] bool
+
+
+def _project_body(rig_mc, rig_intr, cam_idx, Xb):
+    """Body-frame points Xb [..., N, 3] through camera cam_idx [N] of the rig:
+    (uv [..., N, 2], z [..., N])."""
+    Xc = transform_points(hom_inverse(cayley_to_hom(rig_mc[cam_idx])), Xb)
+    return intr_project(rig_intr[cam_idx], Xc), Xc[..., 2]
+
+
+def optimize_sim3(v7_init: torch.Tensor, sobs: Sim3Obs, rig_mc: torch.Tensor, rig_intr: torch.Tensor,
+                  n_iters: int = 12, fix_scale: bool = False):
+    """Gauss-Newton on the 7-dof S12 (KF2 body -> KF1 body) over the symmetric
+    reprojection error through each observation's camera, Huber 1.345 x 4,
+    n_iters fixed steps. fix_scale zeroes the scale column of the Jacobian.
+    Returns (v7, inlier mask, n_inliers); an inlier passes chi2 9.210 in
+    both directions (the reference's th2, cOptimizerLoopStuff.cpp ~:200)."""
+
+    def residuals(v7):
+        R12, t12, s12 = sim3_exp(v7)
+        X2in1 = sim3_apply(R12, t12, s12, sobs.X2)
+        X1in2 = sim3_apply(*sim3_inverse(R12, t12, s12), sobs.X1)
+        uv1p, z1 = _project_body(rig_mc, rig_intr, sobs.cam1, X2in1)
+        uv2p, z2 = _project_body(rig_mc, rig_intr, sobs.cam2, X1in2)
+        r1 = (sobs.uv1 - uv1p) * torch.sqrt(sobs.inv_sigma2_1)[:, None]
+        r2 = (sobs.uv2 - uv2p) * torch.sqrt(sobs.inv_sigma2_2)[:, None]
+        r = torch.cat([r1, r2], dim=-1)                            # [N, 4]
+        return r, (r, sobs.valid & (z1 > 0) & (z2 > 0))
+
+    eye = torch.eye(7, dtype=v7_init.dtype, device=v7_init.device)
+    v7 = v7_init
+    for _ in range(n_iters):
+        J, (r, ok) = jacfwd(residuals, has_aux=True)(v7)           # [N, 4, 7]
+        e = torch.sqrt(torch.sum(r * r, -1) + 1e-18)
+        w = torch.where(ok, torch.clamp_max(SIM3_HUBER / e, 1.0), torch.zeros_like(e))
+        if fix_scale:
+            J = torch.cat([J[..., :6], torch.zeros_like(J[..., 6:])], dim=-1)
+        H = torch.einsum("nij,n,nik->jk", J, w, J) + 1e-6 * eye
+        g = -torch.einsum("nij,n,ni->j", J, w, r)
+        v7 = v7 + torch.linalg.solve(H, g[:, None])[:, 0]
+    _, (r, ok) = residuals(v7)
+    inl = ok & (torch.sum(r[:, :2] ** 2, -1) < SIM3_CHI2) & (torch.sum(r[:, 2:] ** 2, -1) < SIM3_CHI2)
+    return v7, inl, inl.sum()
+
+
+# ---------------------------------------------------------------------------
+# The essential graph (Sim3 pose graph)
+# ---------------------------------------------------------------------------
+
+class Sim3Edges(NamedTuple):
+    i: torch.Tensor       # [E] vertex index i
+    j: torch.Tensor       # [E] vertex index j
+    meas: torch.Tensor    # [E, 7] measured S_ji (v7): S_j ~= S_ji o S_i
+    weight: torch.Tensor  # [E] edge weight (loop edges weigh more)
+    valid: torch.Tensor   # [E] bool
+
+
+def _edge_residual(vi, vj, meas):
+    """log(S_ji_meas o S_i o S_j^-1) of one edge."""
+    Ri, ti, si = sim3_exp(vi)
+    Rj, tj, sj = sim3_exp(vj)
+    Rm, tm, sm = sim3_exp(meas)
+    Rji, tji, sji = sim3_compose(Rm, tm, sm, Ri, ti, si)
+    return sim3_log(*sim3_compose(Rji, tji, sji, *sim3_inverse(Rj, tj, sj)))
+
+
+def _edge_jacobians(vi, vj, meas):
+    """d residual / d vi and d vj of every edge, [E, 7, 7] each: forward mode,
+    one tangent of all edges at a time (the edges stay a real batch axis;
+    vmap over per-edge 0-dim tensors promotes some of them to float64)."""
+    basis = torch.eye(7, dtype=vi.dtype, device=vi.device)[:, None, :].expand(7, *vi.shape)
+
+    def column(f, x):
+        return vmap(lambda tan: jvp(f, (x,), (tan,))[1])(basis).permute(1, 2, 0)
+    return (column(lambda a: _edge_residual(a, vj, meas), vi),
+            column(lambda b: _edge_residual(vi, b, meas), vj))
+
+
+def optimize_essential_graph(v7: torch.Tensor, edges: Sim3Edges, fixed: torch.Tensor, n_iters: int = 20,
+                             dense_limit: int = 300) -> torch.Tensor:
+    """Sim3 pose-graph Gauss-Newton (OptimizeEssentialGraph,
+    cOptimizerLoopStuff.cpp:273-520): vertices are S_iw (world -> keyframe
+    body, 7 dof), each edge constrains a relative Sim3 with residual
+    log(S_ji_meas o S_i o S_j^-1). K <= dense_limit assembles the damped
+    7K x 7K system and solves it densely; a larger graph runs 60 steps of
+    block-Jacobi PCG over the edge table a GN step (the matrix never
+    formed). v7 [K, 7]; fixed [K] bool (the loop keyframe, :339). Returns
+    the optimized v7 [K, 7]."""
+    K = v7.shape[0]
+    dev, dt = v7.device, v7.dtype
+    ii, jj = edges.i.long(), edges.j.long()
+    E = ii.shape[0]
+    w = torch.where(edges.valid, edges.weight.to(dt), torch.zeros((), dtype=dt, device=dev))
+    free = (~fixed).to(dt)
+    seg_v = segments(torch.cat([ii, jj]), K)        # rows of i, then of j, onto vertices
+
+    def linearize(v):
+        r = _edge_residual(v[ii], v[jj], edges.meas)       # [E, 7]
+        Ji, Jj = _edge_jacobians(v[ii], v[jj], edges.meas)  # [E, 7, 7] each
+        g = -_segsum(torch.cat([torch.einsum("eab,e,ea->eb", Ji, w, r),
+                                torch.einsum("eab,e,ea->eb", Jj, w, r)]), seg_v)
+        return Ji, Jj, g
+
+    def outer(A, B):
+        return torch.einsum("eab,e,eac->ebc", A, w, B)
+
+    if K <= dense_limit:
+        blocks = torch.cat([ii * K + ii, jj * K + jj, ii * K + jj, jj * K + ii])
+        seg_h = segments(blocks, K * K)
+        fm = torch.repeat_interleave(free, 7)
+        eye = torch.eye(7 * K, dtype=dt, device=dev)
+        for _ in range(n_iters):
+            Ji, Jj, g = linearize(v7)
+            H = _segsum(torch.cat([outer(Ji, Ji), outer(Jj, Jj), outer(Ji, Jj), outer(Jj, Ji)]).reshape(4 * E, 49),
+                        seg_h).reshape(K, K, 7, 7).permute(0, 2, 1, 3).reshape(7 * K, 7 * K)
+            # fixed vertices: rows and columns zeroed, identity on the diagonal
+            Hm = (H + 1e-5 * eye) * fm[:, None] * fm[None, :] + torch.diag(1.0 - fm)
+            delta = torch.linalg.solve(Hm, (g.reshape(7 * K) * fm)[:, None])[:, 0]
+            v7 = v7 + delta.reshape(K, 7)
+        return v7
+
+    free = free[:, None]
+    eye7 = torch.eye(7, dtype=dt, device=dev)
+    for _ in range(n_iters):
+        Ji, Jj, g = linearize(v7)
+        g = g * free
+        # block-Jacobi preconditioner from the per-vertex diagonal blocks
+        Hd = _segsum(torch.cat([outer(Ji, Ji), outer(Jj, Jj)]).reshape(2 * E, 49), seg_v).reshape(K, 7, 7)
+        Minv = torch.linalg.inv(Hd + 1e-5 * eye7)
+
+        def Hv(x):
+            x = x * free
+            sw = w[:, None] * (torch.einsum("eab,eb->ea", Ji, x[ii]) + torch.einsum("eab,eb->ea", Jj, x[jj]))
+            y = _segsum(torch.cat([torch.einsum("eab,ea->eb", Ji, sw), torch.einsum("eab,ea->eb", Jj, sw)]), seg_v)
+            return (y + 1e-5 * x) * free
+
+        def precond(x):
+            return torch.einsum("kab,kb->ka", Minv, x) * free
+
+        x = torch.zeros_like(g)
+        rr = g
+        z = precond(rr)
+        p, rz = z, torch.sum(rr * z)
+        for _ in range(60):
+            Hp = Hv(p)
+            alpha = rz / torch.clamp_min(torch.sum(p * Hp), 1e-20)
+            x = x + alpha * p
+            rr = rr - alpha * Hp
+            z = precond(rr)
+            rz_new = torch.sum(rr * z)
+            p = z + rz_new / torch.clamp_min(rz, 1e-20) * p
+            rz = rz_new
+        v7 = v7 + x
+    return v7

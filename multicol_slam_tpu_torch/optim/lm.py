@@ -51,12 +51,15 @@ class Segments(NamedTuple):
     cam: Tuple[torch.Tensor, torch.Tensor]
 
 
+def segments(ids: torch.Tensor, n: int):
+    """(order, lengths) of an index column over n segments, for `_segsum`."""
+    ids = ids.long()
+    return torch.argsort(ids, stable=True), torch.bincount(ids, minlength=n)
+
+
 def make_segments(params: BAParams, obs: Observations) -> Segments:
-    def one(ids, n):
-        ids = ids.long()
-        return torch.argsort(ids, stable=True), torch.bincount(ids, minlength=n)
-    return Segments(one(obs.kf, params.poses.shape[0]), one(obs.pt, params.points.shape[0]),
-                    one(obs.cam, params.mc.shape[0]))
+    return Segments(segments(obs.kf, params.poses.shape[0]), segments(obs.pt, params.points.shape[0]),
+                    segments(obs.cam, params.mc.shape[0]))
 
 
 def _segsum(rows: torch.Tensor, seg) -> torch.Tensor:

@@ -18,7 +18,7 @@ culling); erased slots are recycled.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 
@@ -150,7 +150,13 @@ class MapStore:
         self.n_pt_alloc = 0
         self._free_pt: List[int] = []
         self._free_kf: List[int] = []
+        # closed loops (current keyframe, loop keyframe): the essential graph's
+        # loop edges
+        self.loop_edges: List[Tuple[int, int]] = []
         self.scale_factors = cfg.scale_factor ** np.arange(cfg.n_levels)
+        # called with the keyframe id when a keyframe is culled (the loop
+        # closer's inverted file drops it: mpKeyFrameDB->erase)
+        self.on_kf_erased: List[Callable[[int], None]] = []
         # covisibility cache, cleared on keyframe insert / erase: like the
         # reference's maintained connection lists, observation-level changes
         # leave entries stale for at most one keyframe interval
@@ -255,6 +261,8 @@ class MapStore:
         self.kf_point[k] = BAD_ID
         self.kf_feat_valid[k] = False
         self._free_kf.append(k)
+        for cb in self.on_kf_erased:
+            cb(int(k))
         for p in pts:
             if self.pt_valid[p] and self.point_n_obs(p) < 2:
                 self.erase_point(p)
@@ -338,6 +346,9 @@ class MapStore:
     # ---------------------------------------------------- derived structures
     def active_kfs(self) -> np.ndarray:
         return np.nonzero(self.kf_valid)[0]
+
+    def active_points(self) -> np.ndarray:
+        return np.nonzero(self.pt_valid)[0]
 
     def covisibility(self, k: int, min_weight: int = 1) -> Dict[int, int]:
         """Keyframes sharing map points with k and their shared-slot counts

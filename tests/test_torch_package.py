@@ -32,7 +32,7 @@ def test_no_jax_or_yaml_imports(path):
 
 
 # every module the port holds so far (the tracking step, the map bootstrap,
-# then the sync system) -> its counterpart in the JAX package
+# the sync system, then loop closing) -> its counterpart in the JAX package
 MODULES = {
     "convert": None, "models/camera": "models/camera", "models/rig": "models/rig",
     "ops/best_match": "ops/pallas_match", "ops/brief": "ops/brief", "ops/fast": "ops/fast",
@@ -43,6 +43,7 @@ MODULES = {
     "slam/initializer": "slam/initializer", "io/synthetic": "io/synthetic", "io/render": "io/render",
     "device": None, "native": "native", "slam/map_store": "slam/map_store",
     "slam/local_mapping": "slam/local_mapping", "slam/system": "slam/system", "io/trajectory": "io/trajectory",
+    "models/vocab": "models/vocab", "slam/loop_closing": "slam/loop_closing",
 }
 
 

@@ -202,9 +202,12 @@ def test_blackout_and_relocalization(world, jax_run, port_run):
         np.testing.assert_allclose(ts.last_pose[:3], js.last_pose[:3], rtol=0, atol=1e-2)
 
 
-@pytest.mark.parametrize("kw", [dict(use_loop_closing=True), dict(use_loop_closing=False, async_mapping=True),
+@pytest.mark.parametrize("kw", [dict(use_loop_closing=True, async_mapping=True),
+                                dict(use_loop_closing=False, async_mapping=True),
                                 dict(use_loop_closing=False, masks=True)], ids=["loops", "async", "masks"])
 def test_unported_modes_raise(world, kw):
+    """Loop closing is ported (test_torch_loop_closing.py), but not the
+    async worker that runs it on a thread of its own, nor the mdBRIEF masks."""
     settings = SlamSettings(extractor=ExtractorSettings(use_mdbrief=1, learn_masks=1)) if kw.pop("masks", False) \
         else SlamSettings()
     with pytest.raises(NotImplementedError):
