@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's tracking step, map bootstrap, sync system and
-loop closing on one CUDA card.
+"""Drive the PyTorch port's tracking step, map bootstrap, system (sync and
+async), loop closing, CLI and eval entry on one CUDA card.
 
     python3 chip_smoke.py [--reloc-dump NPZ]
 
@@ -60,8 +60,9 @@ Phases, each reported on its own lines:
      (its mapping stages synchronised). One line a frame; then the frame
      it initialized on, frames tracked, keyframes, map points, ATE against
      the world's poses, K1 launches by caller, times by stage, and gates on
-     them. A replay with the plain matcher must give the same states,
-     inliers and keyframes, and bit-identical keyframe poses. Then
+     them. A replay with the plain matcher over the first 30 frames must
+     give the same states, inliers and keyframes, and bit-identical
+     keyframe poses at frame 30. Then
      the relocalization branch on three frames against the final map;
      `--reloc-dump NPZ` writes that map and those frames' features for
      tests/torch_reloc_witness.py.
@@ -81,18 +82,42 @@ Phases, each reported on its own lines:
      phase 8) and the plain-matcher replay, identical (states, inliers,
      keyframes, loop edges, bit-identical keyframe poses); gates >= 1 loop,
      >= 120 tracked, ATE <= 0.10 m. (A)'s six runs and (B)'s replay run side
-     by side in spawned worker processes (the runs are host-bound).
+     by side in spawned worker processes (the runs are host-bound); beside
+     them run phase 14's two processes and the writer of phase 13's dataset.
+ 12. async loop (C2): recipe (B) again with `async_mapping=True`: mapping
+     and loop closing on the worker thread and its own CUDA stream. K1
+     launches by caller and by thread (no synchronised stage timers: a
+     device-wide sync would make the tracker wait for the worker); the
+     worker's last fusion launch (its outputs, taken on its stream) exactly
+     the plain version's; the frames around each run's loop frame, async
+     beside sync; gates >= 1 loop, >= 120 tracked, keyframe ATE <= 0.10 m,
+     no worker error, every CorrectLoop lock-held phase < 250 ms.
+ 13. cli (C1): the system phase's world written by the port's
+     `write_dataset`, its settings the reference's Lafida load (400
+     features, 8 levels, FAST 20); `cli.main` over it with --sync-mapping,
+     then the async default. K1 launches by caller and by thread; the frame
+     times without and with a keyframe (median, p95, worst); keyframes
+     deferred with the mapper busy; the worker-stream fusion check; gates:
+     sync initialized by frame 5, >= 55/60 tracked, ATE <= 0.045 m (of the
+     track-time poses and of MKFTrajectoryLAFIDA.txt); async >= 55 tracked,
+     ATE <= 0.09 m, >= 1 keyframe mapped on the worker, no worker error.
+ 14. eval (C3): `python3 -m multicol_slam_tpu_torch.eval --seeds 3` and
+     `--async --seeds 3` (seeds 7-9, 25 frames): medians < 0.2 m, and seed
+     7 >= 15 of 25 tracked in both modes.
 Each time stands beside two bounds: the bytes at the HBM rate against the
 products of the P pairs that pass at the int8 tensor-core peak (what this
 run's data needs), and the dense one that counts every pair, as the TPU
 kernel computes them.
 Then one JSON line of kernels, and last {"ok": true, "device": {...}}.
-The order of the run: 1-5, 6-7, 10, 11, then 8 and 9 on the captured
-launches.
+The order of the run: 1-5, 6-7, 10, 11 (14 and 13's dataset beside it),
+12, 13, then 8 and 9 on the captured launches (the worker-stream fusion
+launches of 12 and 13 among them). Every phase runs before a failed gate
+of 12-14 raises.
 Any failure raises and exits non-zero. Needs one card; no CPU fallback.
 """
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -197,15 +222,25 @@ def check_border_ties(got, borders):
             raise AssertionError(f"tie across the chunk border {b}: idx {idx[:, i]}, best {best[:, i]}")
 
 
-def recording_match(store):
-    """A match_fn that launches K1 and keeps clones of its arguments."""
+def recording_match(store, outputs=None):
+    """A match_fn that launches K1 and keeps clones of its arguments; with
+    `outputs` (a dict), also outputs[thread name] = the launch's arguments,
+    clones of its outputs (made on the launching thread's stream) and that
+    stream: the last launch of each thread."""
+    import threading
+
     import torch
     from multicol_slam_tpu_torch.ops.best_match import masked_best_match_cams
 
     def fn(*args, **kw):
         a = dict(zip(K1_ARGS, args), **kw)
         store.append({k: v.clone() if torch.is_tensor(v) else v for k, v in a.items()})
-        return masked_best_match_cams(*args, **kw)
+        out = masked_best_match_cams(*args, **kw)
+        if outputs is not None:
+            outputs[threading.current_thread().name] = dict(
+                args=store[-1], out=tuple(o.clone() for o in out),
+                stream=torch.cuda.current_stream().cuda_stream if out[0].is_cuda else 0)
+        return out
     return fn
 
 
@@ -574,20 +609,28 @@ def lafida_rig(device):
     return MultiCamRig.from_cayley(cams, torch.tensor(MC_CAYLEY, dtype=torch.float32, device=device))
 
 
+def room_world():
+    """bench.py:207-211's world (3000 room landmarks, a 3 m circle at 400
+    frames a lap, seed 12) on the 754x480 rig, its first SYS_FRAMES frames:
+    host data, the rig on the CPU."""
+    from multicol_slam_tpu_torch.io.synthetic import make_world
+
+    return make_world(n_points=3000, n_frames=SYS_FRAMES, n_cams=C, n_feats=400, noise_px=0.0,
+                      trajectory="circle_noyaw", radius=3.0, seed=12, period=400, landmarks="room",
+                      max_vis_dist=12.0, rig=lafida_rig("cpu"))
+
+
 def build_bootstrap(dev):
     """The rig on the host (for rendering) and on the card, the world of
     bench.py:207-211, its first SYS_FRAMES frames and the extractor tables."""
     from multicol_slam_tpu_torch.io.render import render_frame
-    from multicol_slam_tpu_torch.io.synthetic import make_world
     from multicol_slam_tpu_torch.slam.features import ExtractorTables
     from multicol_slam_tpu_torch.utils.config import ExtractorSettings
 
     rig_on = lafida_rig
     settings = ExtractorSettings(n_features=400, n_levels=8, scale_factor=1.2, fast_th=20)
     t0 = time.perf_counter()
-    world = make_world(n_points=3000, n_frames=SYS_FRAMES, n_cams=C, n_feats=400, noise_px=0.0,
-                       trajectory="circle_noyaw", radius=3.0, seed=12, period=400, landmarks="room",
-                       max_vis_dist=12.0, rig=rig_on("cpu"))
+    world = room_world()
     images = [render_frame(world, t) for t in range(SYS_FRAMES)]
     log(f"bootstrap: rendered {SYS_FRAMES} frames of {C}x{W}x{H} on the host in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -923,6 +966,7 @@ SYS_MIN_TRACKED = 55
 SYS_KF_RANGE = (7, 11)
 SYS_PT_RANGE = (540, 820)
 SYS_ATE_GATE = 0.045
+SYS_REPLAY_FRAMES = 30   # the plain-matcher replay's depth (it runs the first half of the run)
 # relocalization, called on these frames' features against the final map.
 # It is reported, not gated: its matches carry no ratio test, so ~35-42 %
 # of them are inliers at this width and 160 six-point hypotheses find the
@@ -946,56 +990,79 @@ def _timed(fn, sink):
     return wrapped
 
 
-def _counted(fn, kernel, key, counts):
-    """fn wrapped to add the K1 launches made inside it to counts[key]."""
+def _counted(fn, kernel, key, counts, by_thread=None):
+    """fn wrapped to add the K1 launches made inside it to counts[key]
+    (the calling thread's launches: the tracker and the async worker
+    launch side by side), and to by_thread["key@thread"]."""
+    import threading
+
     def wrapped(*args, **kw):
-        before = kernel.launches
+        before = kernel.thread_launches()
         try:
             return fn(*args, **kw)
         finally:
-            counts[key] += kernel.launches - before
+            n = kernel.thread_launches() - before
+            counts[key] += n
+            if by_thread is not None and n:
+                k = f"{key}@{threading.current_thread().name}"
+                by_thread[k] = by_thread.get(k, 0) + n
     return wrapped
 
 
-def _capturing(fn, sink):
+def _capturing(fn, sink, outputs=None):
     """fuse_match wrapped so that `sink` holds the arguments of its last K1
-    launch, and only those."""
+    launch, and only those (with `outputs`: its outputs, thread, stream)."""
     def wrapped(*args, **kw):
         sink.clear()
-        kw["match_fn"] = recording_match(sink)
+        kw["match_fn"] = recording_match(sink, outputs)
         return fn(*args, **kw)
     return wrapped
 
 
-def _loop_fuse_match(fn, kernel, counts, sinks):
+def _loop_fuse_match(fn, kernel, counts, sinks, by_thread):
     """The loop closer's fuse_match wrapped to count its K1 launches by use
     (radius 10: the Sim3 check's projection; 6: SearchAndFuse) and keep the
     arguments of the last launch of each."""
     def wrapped(*args, **kw):
         use = "loop_sim3_check" if float(args[6]) == 10.0 else "loop_search_and_fuse"
-        return _counted(_capturing(fn, sinks[use]), kernel, use, counts)(*args, **kw)
+        return _counted(_capturing(fn, sinks[use]), kernel, use, counts, by_thread)(*args, **kw)
+    return wrapped
+
+
+def _thread_recorded(fn, sink):
+    """fn wrapped to append the calling thread's name to sink."""
+    import threading
+
+    def wrapped(*args, **kw):
+        sink.append(threading.current_thread().name)
+        return fn(*args, **kw)
     return wrapped
 
 
 def new_record():
-    """What an instrumented run records: K1 launches by caller, stage ms,
-    the last fusion launch's and the loop closer's last launches' arguments."""
+    """What an instrumented run records: K1 launches by caller (and by
+    caller and thread), stage ms, the last fusion launch's (its outputs,
+    thread and stream too) and the loop closer's last launches' arguments,
+    and the thread of each mapping pass."""
     return {"launches": {"tracking": 0, "bootstrap": 0, "fuse": 0, "relocalization": 0, "loop_sim3_check": 0,
                          "loop_search_and_fuse": 0},
+            "launches_by_thread": {},
             "ms": {"global_ba": [], "local_ba": [], "create_new_points": [], "fuse_neighbors": [], "loop_process": [],
                    "vocab_train": [], "loop_correct": [], "eg_solve": []},
-            "fuse_args": [], "loop_args": {"loop_sim3_check": [], "loop_search_and_fuse": []},
-            "frame_launches": [], "map_size": []}
+            "fuse_args": [], "fuse_out": {}, "loop_args": {"loop_sim3_check": [], "loop_search_and_fuse": []},
+            "frame_launches": [], "map_size": [], "run_threads": []}
 
 
-def instrument(rec):
-    """Patch the sync pipeline's callers of K1 (the bootstrap's window
-    matches, the fused tracking program and its wide-window retry, fusion,
+def instrument(rec, timed=True):
+    """Patch the pipeline's callers of K1 (the bootstrap's window matches,
+    the fused tracking program and its wide-window retry, fusion,
     relocalization's confirming stage, the loop closer's projections) to
-    count their launches into rec, and its stages to time themselves
-    (synchronised before and after). Module-level names of the system, the
-    local mapper and the loop closer, which a reset does not replace.
-    Returns the undo list for `restore`."""
+    count their launches into rec, by caller and by thread, and with
+    `timed` its stages to time themselves (synchronised before and after:
+    not in async mode, where a device-wide sync would make the tracker wait
+    for the worker). Module-level names of the system, the local mapper
+    and the loop closer, which a reset does not replace. Returns the undo
+    list for `restore`."""
     from multicol_slam_tpu_torch.ops.best_match import KERNEL
     from multicol_slam_tpu_torch.slam import local_mapping as mapping_module
     from multicol_slam_tpu_torch.slam import loop_closing as loop_module
@@ -1009,12 +1076,16 @@ def instrument(rec):
     def patch(owner, name, wrap):
         patched.append((owner, name, getattr(owner, name)))
         setattr(owner, name, wrap(getattr(owner, name)))
-    counts, ms = rec["launches"], rec["ms"]
-    patch(system_module, "bootstrap", lambda f: _counted(f, KERNEL, "bootstrap", counts))
-    patch(system_module, "track_frame_fused", lambda f: _counted(f, KERNEL, "tracking", counts))
-    patch(system_module, "track_stage", lambda f: _counted(f, KERNEL, "relocalization", counts))
-    patch(mapping_module, "fuse_match", lambda f: _counted(_capturing(f, rec["fuse_args"]), KERNEL, "fuse", counts))
-    patch(loop_module, "fuse_match", lambda f: _loop_fuse_match(f, KERNEL, counts, rec["loop_args"]))
+    counts, ms, bt = rec["launches"], rec["ms"], rec["launches_by_thread"]
+    patch(system_module, "bootstrap", lambda f: _counted(f, KERNEL, "bootstrap", counts, bt))
+    patch(system_module, "track_frame_fused", lambda f: _counted(f, KERNEL, "tracking", counts, bt))
+    patch(system_module, "track_stage", lambda f: _counted(f, KERNEL, "relocalization", counts, bt))
+    patch(mapping_module, "fuse_match",
+          lambda f: _counted(_capturing(f, rec["fuse_args"], rec["fuse_out"]), KERNEL, "fuse", counts, bt))
+    patch(loop_module, "fuse_match", lambda f: _loop_fuse_match(f, KERNEL, counts, rec["loop_args"], bt))
+    patch(LocalMapper, "run", lambda f: _thread_recorded(f, rec["run_threads"]))
+    if not timed:
+        return patched
     patch(loop_module, "build_vocabulary", lambda f: _timed(f, ms["vocab_train"]))
     patch(MultiColSLAM, "_global_ba", lambda f: _timed(f, ms["global_ba"]))
     for stage in ("fuse_neighbors", "create_new_points", "local_ba"):
@@ -1029,15 +1100,15 @@ def restore(patched):
         setattr(owner, name, orig)
 
 
-def run_system(dev, boot, match_fn, instrument_it):
-    """MultiColSLAM over the SYS_FRAMES rendered frames, sync mode. With
+def run_system(dev, boot, match_fn, instrument_it, n_frames=SYS_FRAMES, snap_at=None):
+    """MultiColSLAM over the first n_frames rendered frames, sync mode. With
     `instrument`, the K1 launches are counted by caller where each caller
     calls (module-level names of the system and the local mapper, which a
     reset does not replace; every launch must land in one), the stages are
     timed (synchronised before and after) and the last fusion launch's
     arguments are captured: the frame times of that run include this
-    instrumentation. Returns the system, per-frame metrics and what was
-    recorded."""
+    instrumentation. `snap_at`: also keep the run's record after that many
+    frames. Returns the system, per-frame metrics and what was recorded."""
     import torch
     from multicol_slam_tpu_torch.slam.map_store import MapConfig
     from multicol_slam_tpu_torch.slam.system import MultiColSLAM
@@ -1052,23 +1123,26 @@ def run_system(dev, boot, match_fn, instrument_it):
                                   scale_factor=settings.scale_factor, desc_bytes=B),
                         async_mapping=False, device=dev, match_fn=match_fn)
     return drive(slam, lambda t: dict(images=torch.tensor(images[t], device=dev), timestamp=float(world.timestamps[t])),
-                 SYS_FRAMES, instrument_it)
+                 n_frames, instrument_it, snap_at=snap_at)
 
 
-def drive(slam, frame_args, n_frames, instrument_it):
+def drive(slam, frame_args, n_frames, instrument_it, timed=True, snap_at=None):
     """slam.track over n_frames frames (frame_args(t) -> track's keyword
-    arguments), K1's launch count set to 0 just before and read just after.
+    arguments), K1's launch count set to 0 just before and read just after
+    (in async mode after the worker has drained its queue and shut down).
     With `instrument_it`, the launches are counted by caller and must add up
-    to the run's (the frame times of that run include the instrumentation).
-    Returns the system, per-frame metrics and what was recorded."""
+    to the run's (the frame times of that run include the instrumentation;
+    `timed` as in `instrument`). Returns the system, per-frame metrics and
+    what was recorded."""
     import torch
     from multicol_slam_tpu_torch.ops.best_match import KERNEL
 
     rec = new_record()
     rec["loops_after"], rec["loop_edge_frames"] = [], []
-    patched = instrument(rec) if instrument_it else []
+    patched = instrument(rec, timed) if instrument_it else []
     frames = []
     KERNEL.launches = 0
+    KERNEL.by_thread.clear()
     try:
         for t in range(n_frames):
             before = KERNEL.launches
@@ -1080,10 +1154,15 @@ def drive(slam, frame_args, n_frames, instrument_it):
                 # the closed edge's keyframes by frame (slots are recycled later)
                 s = slam.store
                 rec["loop_edge_frames"].append(tuple(int(s.kf_frame_id[j]) for j in s.loop_edges[-1]))
+            if snap_at is not None and t + 1 == snap_at:
+                rec["snap"] = run_record(slam, frames)
+        slam.wait_mapping_idle()
+        slam.shutdown()
     finally:
         restore(patched)
     torch.cuda.synchronize()
     rec["total_launches"] = KERNEL.launches
+    rec["by_thread"] = dict(KERNEL.by_thread)
     if instrument_it and sum(rec["launches"].values()) != KERNEL.launches:
         raise AssertionError(f"K1 launches by caller {rec['launches']} do not add up to the "
                              f"{KERNEL.launches} launches of the run")
@@ -1155,7 +1234,7 @@ def phase_system(dev, boot, card, reloc_dump=None):
 
     world = boot[0]
     t0 = time.perf_counter()
-    slam, frames, rec = run_system(dev, boot, masked_best_match_cams, instrument_it=True)
+    slam, frames, rec = run_system(dev, boot, masked_best_match_cams, instrument_it=True, snap_at=SYS_REPLAY_FRAMES)
     wall = time.perf_counter() - t0
     s = slam.store
     for t, (m, n, (nk, npt)) in enumerate(zip(frames, rec["frame_launches"], rec["map_size"])):
@@ -1204,13 +1283,16 @@ def phase_system(dev, boot, card, reloc_dump=None):
     if not rec["fuse_args"]:
         raise AssertionError("no fusion launch captured")
 
-    # the plain matcher, uninstrumented: the same run
-    slam_p, frames_p, _ = run_system(dev, boot, masked_best_match_cams_plain, instrument_it=False)
-    failed = same_run("system: plain-matcher replay", run_record(slam, frames), run_record(slam_p, frames_p))
+    # the plain matcher, uninstrumented, over the first SYS_REPLAY_FRAMES
+    # frames: the same run as far as it goes
+    slam_p, frames_p, _ = run_system(dev, boot, masked_best_match_cams_plain, instrument_it=False,
+                                     n_frames=SYS_REPLAY_FRAMES)
+    failed = same_run("system: plain-matcher replay", rec["snap"], run_record(slam_p, frames_p))
     if failed:
         raise AssertionError(failed[0])
-    log(f"system: the uninstrumented plain-matcher replay identical (states, inliers, matches, keyframes per "
-        f"frame; {n_kf} keyframe poses bit-identical)")
+    log(f"system: the uninstrumented plain-matcher replay of the first {SYS_REPLAY_FRAMES} frames identical "
+        f"(states, inliers, matches, keyframes per frame; {int(slam_p.store.kf_valid.sum())} keyframe poses "
+        f"bit-identical at frame {SYS_REPLAY_FRAMES})")
     lc = slam.loop_closer
     log(f"system: loop closing on: vocabulary of {lc.voc.n_words if lc.voc else 0} words trained in "
         f"{stages['vocab_train']} ms (host k-majority; the idf pass on the card), {lc.n_loops_closed} loops closed "
@@ -1271,9 +1353,10 @@ def loop_world(dev, recipe, quiet=False):
     return world, feats, rig
 
 
-def run_loop(dev, recipe, boot, loops, match_fn, instrument_it=False, seed=0):
-    """MultiColSLAM over a recipe's frames, sync mode, loop closing on or
-    off, its RANSAC generator seeded with `seed`."""
+def run_loop(dev, recipe, boot, loops, match_fn, instrument_it=False, seed=0, async_mapping=False):
+    """MultiColSLAM over a recipe's frames, loop closing on or off, its
+    RANSAC generator seeded with `seed`; sync mode unless `async_mapping`
+    (then instrumented without the synchronised stage timers)."""
     from multicol_slam_tpu_torch.slam.map_store import MapConfig
     from multicol_slam_tpu_torch.slam.system import MultiColSLAM
     from multicol_slam_tpu_torch.utils.config import ExtractorSettings, SlamSettings
@@ -1284,10 +1367,10 @@ def run_loop(dev, recipe, boot, loops, match_fn, instrument_it=False, seed=0):
                                                                                scale_factor=1.2)),
                         MapConfig(max_keyframes=64, max_points=r["max_points"], n_cams=C, feats_per_cam=r["n_feats"],
                                   n_levels=1, scale_factor=1.2),
-                        use_loop_closing=loops, device=dev, match_fn=match_fn, seed=seed)
+                        use_loop_closing=loops, device=dev, match_fn=match_fn, seed=seed, async_mapping=async_mapping)
     t0 = time.perf_counter()
     out = drive(slam, lambda t: dict(feats=feats[t], timestamp=float(world.timestamps[t])), LOOP_FRAMES,
-                instrument_it)
+                instrument_it, timed=not async_mapping)
     return out + (time.perf_counter() - t0,)
 
 
@@ -1312,7 +1395,8 @@ def loop_summary(world, slam, frames, rec):
                 loop_frames=loop_frames, ate_kf=ate,
                 ms_frame=med([m.track_ms for m in ok if not m.is_keyframe]),
                 ms_keyframe=med([m.track_ms for m in ok if m.is_keyframe and m.frame_id not in loop_frames]),
-                ms_loop=med([m.track_ms for m in frames if m.frame_id in loop_frames]))
+                ms_loop=med([m.track_ms for m in frames if m.frame_id in loop_frames]),
+                frame_ms=[m.track_ms for m in frames])
 
 
 def summary_text(u):
@@ -1360,14 +1444,16 @@ def loop_worker(job):
                 record=run_record(slam, frames))
 
 
-def phase_loop(dev, card):
+def phase_loop(dev, card, beside_pool=None):
     """Loop closing on the card. Side by side in worker processes: recipe
     (A) without and with loops under LOOP_A_SEEDS, and recipe (B)'s
-    plain-matcher replay. Then, alone, (B) at full width with loops,
-    instrumented (K1 launches by caller, the loop closer's included, adding
-    up to the run's; stage and frame times; the arguments of the last
-    Sim3-check and SearchAndFuse launches); the replay must be identical to
-    it. Every recipe runs before a failed gate raises."""
+    plain-matcher replay (and `beside_pool`'s jobs: started before the
+    pool, `beside_pool()` returns a callable that waits for them, called
+    after it). Then, alone, (B) at full width with loops, instrumented (K1
+    launches by caller, the loop closer's included, adding up to the run's;
+    stage and frame times; the arguments of the last Sim3-check and
+    SearchAndFuse launches); the replay must be identical to it. Every
+    recipe runs before a failed gate raises."""
     import concurrent.futures
     import multiprocessing
 
@@ -1376,10 +1462,12 @@ def phase_loop(dev, card):
     jobs = [("A", loops, seed, False, str(dev)) for seed in LOOP_A_SEEDS for loops in (False, True)]
     jobs.append(("B", True, 0, True, str(dev)))
     t0 = time.perf_counter()
+    wait_beside = beside_pool() if beside_pool is not None else None
     with concurrent.futures.ProcessPoolExecutor(len(jobs), mp_context=multiprocessing.get_context("spawn")) as pool:
         results = list(pool.map(loop_worker, jobs))
     log(f"loop: {len(jobs)} runs side by side in worker processes (recipe (A) x {len(LOOP_A_SEEDS)} seeds x loops "
         f"off / on, recipe (B)'s plain-matcher replay) in {time.perf_counter() - t0:.3f} s")
+    beside = wait_beside() if wait_beside is not None else None
     runs = {False: [], True: []}
     for (_, loops, seed, _, _), u in zip(jobs[:-1], results):
         runs[loops].append(u)
@@ -1423,12 +1511,278 @@ def phase_loop(dev, card):
         raise AssertionError("; ".join(failed))
     log(f"loop: recipe (B): the uninstrumented plain-matcher replay identical (states, inliers, matches, "
         f"keyframes per frame, loop edges {slam.store.loop_edges}; {u['n_kf']} keyframe poses bit-identical)")
-    strip = lambda r: {k: v for k, v in r.items() if k != "record"}  # noqa: E731
+    strip = lambda r: {k: v for k, v in r.items() if k not in ("record", "frame_ms")}  # noqa: E731
     return dict(launches={"loop_A_off": sum(r["launches"] for r in runs[False]),
                           "loop_A_on": sum(r["launches"] for r in runs[True]),
                           **{f"loop_B_{k}": v for k, v in rec["launches"].items()}},
-                A=[strip(r) for r in runs[True]], A_off=[strip(r) for r in runs[False]], A_median_ate=ate, B=u,
-                stages=stages, captured={k: v[-1] for k, v in rec["loop_args"].items()})
+                A=[strip(r) for r in runs[True]], A_off=[strip(r) for r in runs[False]], A_median_ate=ate,
+                B=strip(u), B_frame_ms=u["frame_ms"], stages=stages,
+                captured={k: v[-1] for k, v in rec["loop_args"].items()}, beside=beside)
+
+
+# the CLI / async phase: C1 the CLI at full width on the system phase's world
+# written to disk, sync and async; C2 recipe (B) of the loop phase with the
+# async worker; C3 the port's eval recipe (eval.py's _synthetic, 25 frames,
+# seeds 7-9) in both modes. The dataset and C3 run in processes of their own
+# beside the loop phase's pool.
+WORKER = "mcslam-mapping"     # the async worker's thread name (slam/system.py)
+CLI_ATE_GATE = {"sync": SYS_ATE_GATE, "async": 2 * SYS_ATE_GATE}   # async is not deterministic
+EVAL_SEEDS, EVAL_FRAMES, EVAL_GATE, EVAL_MIN_TRACKED = 3, 25, 0.2, 15   # tests/test_eval_accuracy.py's gates
+EVAL_TIMEOUT = 600
+_CHILDREN = []                # processes this script started, stopped at its end
+
+
+def write_cli_dataset(out_dir):
+    """The system phase's world written by the port's write_dataset, its
+    settings replaced by the reference's Lafida extractor load (400
+    features, 8 levels, FAST 20; the root eval.py:220-227). Runs in a
+    process of its own."""
+    from multicol_slam_tpu_torch.eval import lafida_settings
+    from multicol_slam_tpu_torch.io.render import write_dataset
+
+    write_dataset(room_world(), out_dir)
+    with open(os.path.join(out_dir, "Slam_Settings_synthetic.yaml"), "w") as f:
+        f.write(lafida_settings(SYS_FRAMES))
+
+
+def start_beside(tmp):
+    """Start the jobs that run beside the loop phase's pool: the CLI
+    dataset's writer, and `python3 -m multicol_slam_tpu_torch.eval --seeds 3
+    [--async]`. Returns a callable that waits for them and returns the
+    dataset's directory and the evals' results."""
+    import multiprocessing
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    dataset = os.path.join(tmp, "cli_dataset")
+    writer = multiprocessing.get_context("spawn").Process(target=write_cli_dataset, args=(dataset,))
+    writer.start()
+    _CHILDREN.append(writer)
+    evals = {}
+    for mode in ("sync", "async"):
+        logf = open(os.path.join(tmp, f"eval_{mode}.log"), "w")
+        cmd = [sys.executable, "-m", "multicol_slam_tpu_torch.eval", "--seeds", str(EVAL_SEEDS), "--frames",
+               str(EVAL_FRAMES), "--out", os.path.join(tmp, f"eval_{mode}")] + (["--async"] if mode == "async" else [])
+        proc = subprocess.Popen(cmd, cwd=root, stdout=logf, stderr=subprocess.STDOUT,
+                                env=dict(os.environ, OMP_NUM_THREADS="2"))
+        _CHILDREN.append(proc)
+        evals[mode] = (proc, logf)
+    t0 = time.perf_counter()
+
+    def wait():
+        writer.join()
+        results = {}
+        for mode, (proc, logf) in evals.items():
+            try:
+                rc = proc.wait(timeout=EVAL_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = "timeout"
+            logf.close()
+            with open(logf.name) as f:
+                text = f.read()
+            lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+            results[mode] = dict(rc=rc, result=json.loads(lines[-1]) if lines else None, tail=text[-1500:])
+        log(f"cli: the dataset writer and the two eval processes done {time.perf_counter() - t0:.3f} s after they "
+            f"started (beside the loop phase's pool); writer exit code {writer.exitcode}")
+        return dict(dataset=dataset, writer_rc=writer.exitcode, evals=results)
+    return wait
+
+
+def stop_children():
+    for p in _CHILDREN:
+        alive = p.poll() is None if isinstance(p, subprocess.Popen) else p.is_alive()
+        if alive:
+            p.kill()
+
+
+def frame_ms_text(ms):
+    """median / p95 / worst of a list of ms, or "none"."""
+    if not ms:
+        return "none"
+    return f"median {np.median(ms):.3f}, p95 {np.percentile(ms, 95):.3f}, worst {max(ms):.3f} ({len(ms)} frames)"
+
+
+def check_worker_fusion(rec, label):
+    """The last fusion launch of the async worker: made on the worker's
+    thread and stream, its outputs (taken on that stream) exactly the
+    plain version's on the same arguments. Returns (failures, arguments)."""
+    import torch
+    from multicol_slam_tpu_torch.ops.best_match import masked_best_match_cams_plain
+
+    w = rec["fuse_out"].get(WORKER)
+    if w is None:
+        return [f"{label}: no fusion launch on the worker's thread"], None
+    torch.cuda.synchronize()
+    ref = masked_best_match_cams_plain(**w["args"])
+    same = all(torch.equal(x, y) for x, y in zip(w["out"], ref))
+    main_stream = torch.cuda.current_stream().cuda_stream
+    a = w["args"]
+    log(f"{label}: the worker's last fusion launch (C={a['desc_q'].shape[0]} Q={a['desc_q'].shape[1]} "
+        f"T={a['desc_t'].shape[-2]}) on stream {w['stream']:#x} (the tracker's: {main_stream:#x}): kernel "
+        f"{'==' if same else '!='} plain exactly on best/second/idx/col_best")
+    failed = [] if same else [f"{label}: the worker-stream fusion launch differs from the plain version"]
+    if w["stream"] == main_stream:
+        failed.append(f"{label}: the worker launched on the tracker's stream")
+    return failed, a
+
+
+def phase_cli(dev, boot, card, dataset):
+    """C1: `cli.main` on the system phase's world written to disk, sync then
+    the async default, at full width. K1 launches counted by caller and by
+    thread (no synchronised timers); the frame times; the gates. Returns
+    what the kernels line needs."""
+    import torch
+    from multicol_slam_tpu_torch import cli
+    from multicol_slam_tpu_torch.io.trajectory import ate_rmse, load_tum_trajectory, umeyama_align
+    from multicol_slam_tpu_torch.ops.best_match import KERNEL
+    from multicol_slam_tpu_torch.slam.system import WORKING
+    from multicol_slam_tpu_torch.utils.geometry import cayley_to_hom
+
+    world = boot[0]
+    pos = lambda p: cayley_to_hom(torch.tensor(np.asarray(p, np.float32))).numpy()[:, :3, 3]  # noqa: E731
+    settings = os.path.join(dataset, "Slam_Settings_synthetic.yaml")
+    out, failed, worker_args = {}, [], None
+    for mode in ("sync", "async"):
+        run_dir = tempfile.mkdtemp(prefix=f"cli_{mode}_")
+        metrics = os.path.join(run_dir, "metrics.jsonl")
+        rec = new_record()
+        made, threads = [], []
+        orig = cli.MultiColSLAM
+
+        def recording(*a, **kw):
+            made.append(orig(*a, **kw))
+            threads.append(made[-1]._worker)
+            return made[-1]
+        patched = instrument(rec, timed=False)
+        cli.MultiColSLAM = recording
+        cwd = os.getcwd()
+        os.chdir(run_dir)
+        KERNEL.launches = 0
+        KERNEL.by_thread.clear()
+        t0 = time.perf_counter()
+        try:
+            rc = cli.main(["no_voc.yml", settings, dataset, dataset, "--metrics", metrics]
+                          + (["--sync-mapping"] if mode == "sync" else []))
+        finally:
+            os.chdir(cwd)
+            cli.MultiColSLAM = orig
+            restore(patched)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches, by_thread = KERNEL.launches, dict(KERNEL.by_thread)
+        slam = made[0]
+        frames = slam.trajectory
+        working = [m for m in frames if m.state == WORKING]
+        init_frame = working[0].frame_id if working else None
+        ate = float("inf")
+        if len(working) >= 3:
+            gt = pos(world.poses[[m.frame_id for m in working]])
+            ate = float(np.sqrt(np.mean(np.sum((umeyama_align(pos(np.stack([m.pose for m in working])), gt) - gt)
+                                               ** 2, -1))))
+        t_est, p_est = load_tum_trajectory(os.path.join(run_dir, "MKFTrajectoryLAFIDA.txt"))
+        ate_file = float(ate_rmse(t_est, p_est, world.timestamps, pos(world.poses)))
+        with open(metrics) as f:
+            summary = json.loads(f.read().splitlines()[-1])
+        ms_kf = [m.track_ms for m in working if m.is_keyframe]
+        ms_plain = [m.track_ms for m in working if not m.is_keyframe]
+        on_worker = rec["run_threads"].count(WORKER)
+        joined = all(t is None or not t.is_alive() for t in threads)
+        u = dict(rc=rc, init_frame=init_frame, tracked=len(working), n_kf=summary["n_keyframes"],
+                 n_pt=summary["n_points"], ate=ate, ate_file=ate_file, kf_frames=[m.frame_id for m in frames
+                                                                                   if m.is_keyframe],
+                 mapped_on_worker=on_worker, mapping_passes=len(rec["run_threads"]),
+                 kf_deferred_mapper_busy=summary["kf_deferred_mapper_busy"], worker_errors=len(slam.worker_errors),
+                 worker_joined=joined, launches=launches, launches_by_thread=by_thread,
+                 launches_by_caller=dict(rec["launches"]), launches_by_caller_thread=dict(rec["launches_by_thread"]),
+                 ms_frame=float(np.median(ms_plain)) if ms_plain else float("nan"),
+                 ms_keyframe=float(np.median(ms_kf)) if ms_kf else float("nan"),
+                 frame_ms=[m.track_ms for m in frames], wall=wall)
+        out[mode] = u
+        log(f"cli: {mode}: `cli.main` over {len(frames)} frames of {C}x{W}x{H} in {wall:.3f} s, exit code {rc}; "
+            f"initialized on frame {init_frame}; {len(working)} tracked; keyframes on frames {u['kf_frames']}; "
+            f"{u['n_kf']} keyframes, {u['n_pt']} points; mapping passes {u['mapping_passes']}, {on_worker} on the "
+            f"worker; keyframes deferred with the mapper busy {u['kf_deferred_mapper_busy']}; worker errors "
+            f"{u['worker_errors']}, worker joined {joined}")
+        log(f"cli: {mode}: ATE (Sim3-aligned) of the track-time poses {ate:.6f} m, of MKFTrajectoryLAFIDA.txt "
+            f"(keyframe-composed, {len(t_est)} lines) {ate_file:.6f} m (gate {CLI_ATE_GATE[mode]} on both)")
+        log(f"cli: {mode}: K1 launches {launches}, by thread {by_thread}, by caller {rec['launches']}, by caller "
+            f"and thread {rec['launches_by_thread']}")
+        log(f"cli: {mode}: ms a frame (FrameMetrics.track_ms, host clock, no synchronised timers) without a "
+            f"keyframe: {frame_ms_text(ms_plain)}; with one: {frame_ms_text(ms_kf)} [{card}]")
+        if sum(rec["launches"].values()) != launches:
+            failed.append(f"cli {mode}: K1 launches by caller {rec['launches']} do not add up to {launches}")
+        if rc != 0 or len(working) < SYS_MIN_TRACKED or not max(ate, ate_file) <= CLI_ATE_GATE[mode]:
+            failed.append(f"cli {mode}: exit code {rc}, {len(working)} tracked (gate {SYS_MIN_TRACKED}), ATE {ate} "
+                          f"and {ate_file} from the file (gate {CLI_ATE_GATE[mode]})")
+        if mode == "sync" and (init_frame is None or init_frame > SYS_INIT_BY):
+            failed.append(f"cli sync: initialized on frame {init_frame}, gate {SYS_INIT_BY}")
+        if mode == "async":
+            if on_worker < 1 or slam.worker_errors or not joined or by_thread.get(WORKER, 0) == 0:
+                failed.append(f"cli async: {on_worker} keyframes mapped on the worker, {len(slam.worker_errors)} "
+                              f"worker errors, joined {joined}, K1 by thread {by_thread}")
+            f, worker_args = check_worker_fusion(rec, "cli: async")
+            failed += f
+    return out, failed, worker_args
+
+
+def phase_async_loop(dev, card, loop):
+    """C2: recipe (B) of the loop phase with the async worker (loops on, the
+    full width). K1 launches by caller and by thread, the worker-stream
+    fusion check, the loop's frame and its neighbours beside the sync
+    run's; the gates. Returns what the kernels line needs."""
+    from multicol_slam_tpu_torch.ops.best_match import masked_best_match_cams
+
+    boot_b = loop_world(dev, "B")
+    slam, frames, rec, wall = run_loop(dev, "B", boot_b, True, masked_best_match_cams, instrument_it=True,
+                                       async_mapping=True)
+    u = loop_summary(boot_b[0], slam, frames, rec)
+    lc = slam.loop_closer
+    locked_max = max(lc.locked_phase_ms, default=0.0)
+    on_worker = rec["run_threads"].count(WORKER)
+    log(f"async loop: recipe (B), {C}x{W}x{H}, loops on, async worker: {summary_text(u)}; {wall:.3f} s")
+    log(f"async loop: K1 launches {rec['total_launches']}, by thread {rec['by_thread']}, by caller {rec['launches']}, "
+        f"by caller and thread {rec['launches_by_thread']}; mapping passes {len(rec['run_threads'])}, {on_worker} on "
+        f"the worker; keyframes deferred with the mapper busy {slam._kf_deferred_busy}; worker errors "
+        f"{len(slam.worker_errors)}")
+    log(f"async loop: CorrectLoop's lock-held phases {[round(x, 3) for x in lc.locked_phase_ms]} ms (max "
+        f"{locked_max:.3f}, gate 250); median ms a frame {u['ms_frame']:.3f} (no keyframe), {u['ms_keyframe']:.3f} "
+        f"(a keyframe) [{card}]")
+    sync_ms, async_ms = loop["B_frame_ms"], u["frame_ms"]
+    for label, lfs in (("async", u["loop_frames"]), ("sync", loop["B"]["loop_frames"])):
+        for lf in lfs:
+            window = range(max(lf - 3, 0), min(lf + 4, LOOP_FRAMES))
+            log(f"async loop: around the {label} run's loop frame {lf}: ms a frame async / sync "
+                + ", ".join(f"{t}: {async_ms[t]:.1f} / {sync_ms[t]:.1f}" for t in window) + f" [{card}]")
+    failed = []
+    if u["loops"] < 1 or u["tracked"] < LOOP_MIN_TRACKED or not u["ate_kf"] <= LOOP_ATE_GATE["B"]:
+        failed.append(f"async loop: {summary_text(u)}; gates 1 loop, {LOOP_MIN_TRACKED} tracked, "
+                      f"{LOOP_ATE_GATE['B']} m")
+    if slam.worker_errors or not locked_max < 250.0 or on_worker < 1:
+        failed.append(f"async loop: {len(slam.worker_errors)} worker errors, lock held {locked_max} ms at most, "
+                      f"{on_worker} keyframes mapped on the worker")
+    if sum(rec["launches"].values()) != rec["total_launches"]:
+        failed.append(f"async loop: K1 launches by caller {rec['launches']} do not add up")
+    f, worker_args = check_worker_fusion(rec, "async loop")
+    failed += f
+    strip = {k: v for k, v in u.items() if k != "frame_ms"}
+    return dict(summary=strip, launches=rec["total_launches"], by_thread=rec["by_thread"],
+                by_caller=dict(rec["launches"]), by_caller_thread=dict(rec["launches_by_thread"]),
+                locked_max_ms=locked_max, mapped_on_worker=on_worker, kf_deferred_mapper_busy=slam._kf_deferred_busy,
+                wall=wall), failed, worker_args
+
+
+def phase_eval(beside):
+    """C3: the eval processes' results and gates."""
+    failed = []
+    out = {}
+    for mode, r in beside["evals"].items():
+        res = r["result"]
+        log(f"eval: {mode}: exit code {r['rc']}; {json.dumps(res)}")
+        if r["rc"] != 0 or res is None or not res["value"] < EVAL_GATE or res["frames_tracked"][0] < EVAL_MIN_TRACKED:
+            failed.append(f"eval {mode}: exit code {r['rc']}, result {res}; output: {r['tail']}")
+        out[mode] = res
+    return out, failed
+
 
 
 def main(argv=None):
@@ -1461,28 +1815,43 @@ def main(argv=None):
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"device: ptxas {line.strip()}")
 
-    max_err = phase_kernel(dev)
-    state = build_slice(dev)
-    launches, frame, cap_track = phase_slice(dev, state)
-    tk = phase_timing(dev, state, frame, card)
-    k2_err = phase_k2(dev)
-    boot = build_bootstrap(dev)
-    out = phase_bootstrap(dev, boot)
-    bt = phase_bootstrap_timing(dev, boot, out, card)
-    system = phase_system(dev, boot, card, args.reloc_dump)
-    loop = phase_loop(dev, card)
-    captured = phase_captured(dev, [("tracking stage 1", cap_track[0]), ("tracking stage 2", cap_track[1]),
-                                    ("bootstrap forward", out["captured"][0]),
-                                    ("bootstrap backward", out["captured"][1]),
-                                    ("system fusion", system["fuse"]),
-                                    ("loop Sim3 check, radius 10", loop["captured"]["loop_sim3_check"]),
-                                    ("loop SearchAndFuse, radius 6", loop["captured"]["loop_search_and_fuse"])],
-                              card)
-    sweep = phase_split([
-        ("K1 tracking stage 1", masked_best_match_cams, masked_best_match_cams_plain, cap_track[0]),
-        ("K1 bootstrap forward", masked_best_match_cams, masked_best_match_cams_plain, out["captured"][0]),
-        ("K2 Q=T=800", masked_best_match, masked_best_match_plain, out["fwd"][0]),
-    ], card)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        max_err = phase_kernel(dev)
+        state = build_slice(dev)
+        launches, frame, cap_track = phase_slice(dev, state)
+        tk = phase_timing(dev, state, frame, card)
+        k2_err = phase_k2(dev)
+        boot = build_bootstrap(dev)
+        out = phase_bootstrap(dev, boot)
+        bt = phase_bootstrap_timing(dev, boot, out, card)
+        system = phase_system(dev, boot, card, args.reloc_dump)
+        loop = phase_loop(dev, card, beside_pool=lambda: start_beside(tmp))
+        async_loop, failed, worker_loop = phase_async_loop(dev, card, loop)
+        cli_out, failed_cli, worker_cli = phase_cli(dev, boot, card, loop["beside"]["dataset"])
+        evals, failed_eval = phase_eval(loop["beside"])
+        failed += failed_cli + failed_eval
+        if loop["beside"]["writer_rc"] != 0:
+            failed.append(f"the CLI dataset's writer exited with {loop['beside']['writer_rc']}")
+        worker_rows = [(name, a) for name, a in (("CLI async fusion, worker stream", worker_cli),
+                                                 ("async loop (B) fusion, worker stream", worker_loop)) if a]
+        captured = phase_captured(dev, [("tracking stage 1", cap_track[0]), ("tracking stage 2", cap_track[1]),
+                                        ("bootstrap forward", out["captured"][0]),
+                                        ("bootstrap backward", out["captured"][1]),
+                                        ("system fusion", system["fuse"]),
+                                        ("loop Sim3 check, radius 10", loop["captured"]["loop_sim3_check"]),
+                                        ("loop SearchAndFuse, radius 6", loop["captured"]["loop_search_and_fuse"])]
+                                  + worker_rows, card)
+        sweep = phase_split([
+            ("K1 tracking stage 1", masked_best_match_cams, masked_best_match_cams_plain, cap_track[0]),
+            ("K1 bootstrap forward", masked_best_match_cams, masked_best_match_cams_plain, out["captured"][0]),
+            ("K2 Q=T=800", masked_best_match, masked_best_match_plain, out["fwd"][0]),
+        ], card)
+        if failed:
+            raise AssertionError("; ".join(failed))
+    finally:
+        stop_children()
+        shutil.rmtree(tmp, ignore_errors=True)
 
     def split(Cs, Qs, Ts):
         chunk = target_chunk(Cs, Qs, Ts)
@@ -1490,14 +1859,22 @@ def main(argv=None):
                 "blocks": -(-Qs // QUERY_TILE) * -(-Ts // chunk) * Cs}
 
     piece = "torch.matmul of +-1 bf16 descriptors, the distance alone"
+    role = lambda th: "worker" if th == WORKER else "tracker"  # noqa: E731
+    cli_paths = {f"cli_{mode}_{role(th)}": n
+                 for mode, u in cli_out.items() for th, n in u["launches_by_thread"].items()}
+    cli_paths.update({f"loop_B_async_{role(th)}": n for th, n in async_loop["by_thread"].items()})
     log(json.dumps({"kernels": [{
         "name": "masked_best_match_cams",
         "route": "cuda",
         "source": "multicol_slam_tpu_torch/csrc/best_match.cu",
         "replaces": "multicol_slam_tpu/ops/pallas_match.py:200",
-        "launches": launches + out["launches"] + sum(system["launches"].values()) + sum(loop["launches"].values()),
+        "launches": (launches + out["launches"] + sum(system["launches"].values()) + sum(loop["launches"].values())
+                     + sum(cli_paths.values())),
         "launches_by_path": {"tracking": launches, "bootstrap": out["launches"],
-                             **{f"system_{k}": v for k, v in system["launches"].items()}, **loop["launches"]},
+                             **{f"system_{k}": v for k, v in system["launches"].items()}, **loop["launches"],
+                             **cli_paths},
+        "launches_by_caller_and_thread": {**{f"cli_{m}": u["launches_by_caller_thread"] for m, u in cli_out.items()},
+                                          "loop_B_async": async_loop["by_caller_thread"]},
         "max_abs_err": max_err,
         "ms": tk["ms"],
         "plain_ms": tk["plain_ms"],
@@ -1520,6 +1897,9 @@ def main(argv=None):
         "loop": {"A_off": loop["A_off"], "A_on": loop["A"], "A_median_ate": {"off": loop["A_median_ate"][False],
                                                                             "on": loop["A_median_ate"][True]},
                  "B": loop["B"], "B_stages": loop["stages"]},
+        "cli": {m: {k: v for k, v in u.items() if k != "frame_ms"} for m, u in cli_out.items()},
+        "async_loop": async_loop,
+        "eval": evals,
     }, {
         "name": "masked_best_match",
         "route": "cuda",

@@ -1,13 +1,19 @@
-"""Synthetic fisheye images of a synthetic world (port of `_patch_window`
-and `render_frame` of `multicol_slam_tpu/io/render.py`).
+"""Synthetic fisheye images of a synthetic world, and the Lafida-layout
+dataset written from them (port of `multicol_slam_tpu/io/render.py`).
 
 Each landmark visible at the frame's ground-truth pose is stamped as a small
 deterministic texture patch, so FAST finds it and its BRIEF descriptor is
 distinctive. Rendering is a host-side fixture: numpy, with the projection
 through the port's camera model on the CPU (device="cpu", passed
-explicitly), whatever device the world's rig is on.
+explicitly), whatever device the world's rig is on. `write_dataset` writes
+the images as PGM with images_and_timestamps.txt and the three YAML
+schemas, so the CLI runs on it as it would on Lafida; its files are
+byte-identical to the reference's for the same world.
 """
 from __future__ import annotations
+
+import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -81,3 +87,71 @@ def render_frame(world: SyntheticWorld, t: int, rng_seed: int = 1234) -> np.ndar
                       + nrng.normal(0.0, 12.0 * world.noise_px, out.shape).astype(np.int16),
                       0, 255).astype(np.uint8)
     return out
+
+
+def _write_pgm(path: str, img: np.ndarray) -> None:
+    h, w = img.shape
+    with open(path, "wb") as f:
+        f.write(f"P5\n{w} {h}\n255\n".encode())
+        f.write(img.astype(np.uint8).tobytes())
+
+
+def write_dataset(world: SyntheticWorld, out_dir: str, n_frames: Optional[int] = None) -> str:
+    """Write a Lafida-layout dataset: the rendered PGM images,
+    images_and_timestamps.txt and the three YAML schemas. Returns the
+    sequence directory (== the calibration directory)."""
+    os.makedirs(out_dir, exist_ok=True)
+    C = world.rig.n_cams
+    lines = []
+    for t in range(n_frames or len(world.poses)):
+        imgs = render_frame(world, t)
+        names = []
+        for c in range(C):
+            name = f"cam{c}_{t:05d}.pgm"
+            _write_pgm(os.path.join(out_dir, name), imgs[c])
+            names.append(name)
+        lines.append(f"{world.timestamps[t]:.6f} " + " ".join(names[:3]))
+    with open(os.path.join(out_dir, "images_and_timestamps.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    write_calibration_yamls(world, out_dir)
+    return out_dir
+
+
+def write_calibration_yamls(world: SyntheticWorld, out_dir: str) -> None:
+    """The reference's three YAML schemas for the world's rig, floats as
+    %.12g of their float32 values."""
+    rig = world.rig
+    C = rig.n_cams
+    mc = rig.Mc_cayley.detach().cpu().numpy()
+    cams = {k: getattr(rig.cams, k).detach().cpu().numpy() for k in ("pol", "invpol", "cde", "pp", "wh")}
+    with open(os.path.join(out_dir, "MultiCamSys_Calibration.yaml"), "w") as f:
+        f.write("%YAML:1.0\n\n")
+        f.write(f"CameraSystem.nrCams: {C}\n")
+        for c in range(C):
+            for j in range(6):
+                f.write(f"CameraSystem.cam{c + 1}_{j + 1}: {float(mc[c, j]):.12g}\n")
+    for c in range(C):
+        pol, invpol, cde, pp, wh = (cams[k][c] for k in ("pol", "invpol", "cde", "pp", "wh"))
+        n_pol = max(int(np.max(np.nonzero(pol)[0], initial=0)) + 1, 2)
+        n_inv = max(int(np.max(np.nonzero(invpol)[0], initial=0)) + 1, 2)
+        with open(os.path.join(out_dir, f"InteriorOrientationFisheye{c}.yaml"), "w") as f:
+            f.write("%YAML:1.0\n\n")
+            f.write(f"Camera.Iw: {int(wh[0])}\nCamera.Ih: {int(wh[1])}\n")
+            f.write(f"Camera.nrpol: {n_pol}\nCamera.nrinvpol: {n_inv}\n")
+            for i in range(n_pol):
+                f.write(f"Camera.a{i}: {float(pol[i]):.12g}\n")
+            for i in range(n_inv):
+                f.write(f"Camera.pol{i}: {float(invpol[i]):.12g}\n")
+            f.write(f"Camera.c: {float(cde[0]):.12g}\nCamera.d: {float(cde[1]):.12g}\n"
+                    f"Camera.e: {float(cde[2]):.12g}\n")
+            f.write(f"Camera.u0: {float(pp[0]):.12g}\nCamera.v0: {float(pp[1]):.12g}\n")
+            f.write("Camera.mirrorMask: 1\n")
+    with open(os.path.join(out_dir, "Slam_Settings_synthetic.yaml"), "w") as f:
+        f.write("%YAML:1.0\n\n")
+        f.write("Camera.fps: 25.0\nCamera.RGB: 0\n")
+        f.write("extractor.usemdBRIEF: 0\nextractor.masks: 0\nextractor.useAgast: 0\n")
+        f.write("extractor.fastAgastType: 2\nextractor.descSize: 32\n")
+        f.write(f"extractor.nFeatures: {world.n_feats}\n")
+        f.write("extractor.scaleFactor: 1.2\nextractor.nLevels: 2\nextractor.fastTh: 20\n")
+        f.write("extractor.nScoreType: 0\nUseMotionModel: 1\n")
+        f.write(f"traj.StartFrame: 1\ntraj.EndFrame: {len(world.poses) + 1}\n")

@@ -44,8 +44,9 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -76,14 +77,21 @@ def _find_nvcc() -> str:
 
 
 class _Library:
-    """The shared library built from `SOURCE`, compiled once per content."""
+    """The shared library built from `SOURCE`, compiled once per content and
+    loaded once: a lock serialises the build and the load, so that the first
+    calls of the tracker and of the mapping worker make one library."""
 
     def __init__(self):
         self.log = ""
         self._lib = None
+        self._lock = threading.RLock()
 
     def build(self) -> Path:
         """Compile the source (once per content) and return the library path."""
+        with self._lock:
+            return self._build()
+
+    def _build(self) -> Path:
         src = SOURCE.read_bytes()
         tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
         lib = BUILD_DIR / f"libbest_match_{tag}.so"
@@ -105,9 +113,10 @@ class _Library:
         return lib
 
     def symbol(self, name: str):
-        if self._lib is None:
-            self._lib = ctypes.CDLL(str(self.build()))
-        return getattr(self._lib, name)
+        with self._lock:
+            if self._lib is None:
+                self._lib = ctypes.CDLL(str(self.build()))
+            return getattr(self._lib, name)
 
 
 _LIBRARY = _Library()
@@ -115,13 +124,27 @@ _LIBRARY = _Library()
 
 class BestMatchKernel:
     """One entry point of the library and its launch count. `launches` goes
-    up by one each time the entry's wrapper launches it, and nowhere else."""
+    up by one each time the entry's wrapper launches it (`count`), and
+    nowhere else; `by_thread` splits the same count by the launching
+    thread's name (the tracker and the mapping worker both launch K1)."""
 
     def __init__(self, symbol: str, argtypes):
         self.symbol_name = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.by_thread: Dict[str, int] = {}
         self._fn = None
+        self._count_lock = threading.Lock()
+
+    def count(self):
+        with self._count_lock:
+            self.launches += 1
+            name = threading.current_thread().name
+            self.by_thread[name] = self.by_thread.get(name, 0) + 1
+
+    def thread_launches(self) -> int:
+        """The launches made so far by the calling thread."""
+        return self.by_thread.get(threading.current_thread().name, 0)
 
     def build(self) -> Path:
         return _LIBRARY.build()
@@ -319,7 +342,7 @@ def masked_best_match_cams(
                  scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"best_match kernel launch failed: cudaError_t {err}")
-    KERNEL.launches += 1
+    KERNEL.count()
     return best, second, idx, col_best
 
 
@@ -395,5 +418,5 @@ def masked_best_match(
                  idx.data_ptr(), scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"best_match_single kernel launch failed: cudaError_t {err}")
-    KERNEL_SINGLE.launches += 1
+    KERNEL_SINGLE.count()
     return best, second, idx

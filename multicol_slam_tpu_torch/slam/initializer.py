@@ -15,8 +15,10 @@
 
 Matching, RANSAC, triangulation, projections and scale scoring run on the
 features' device; the gates (percentiles, Kabsch SVD, medians) run once per
-attempt on the host in numpy, as in the reference. The reference's later
-steps (map writes, cross-camera fusion, global BA) are not ported yet.
+attempt on the host in numpy, as in the reference. The steps after a
+successful attempt (the two keyframes and their points written to the map,
+cross-camera fusion, global BA) are the system's `_try_initialize`
+(slam/system.py).
 """
 from __future__ import annotations
 

@@ -1,17 +1,25 @@
 """Local mapping: new-point triangulation, culling, fusion, local BA (port of
-`multicol_slam_tpu/slam/local_mapping.py`, the sequential pipeline).
+`multicol_slam_tpu/slam/local_mapping.py`).
 
 The cLocalMapping loop (cLocalMapping.cpp:69-597) runs on the host after
-each keyframe insertion, each device stage one batched program with one
-packed readback:
+each keyframe insertion, inline in sync mode or on the async mapping worker
+(slam/system.py), each device stage one batched program with one packed
+readback:
 
   ProcessNewMultiKeyFrame -> MapStore bookkeeping (map_store.py)
   MapPointCulling         -> cull_map_points (host)
-  CreateNewMapPoints      -> triangulate_pairs, every neighbour pair at once
+  CreateNewMapPoints      -> triangulate_pairs over the neighbour pairs
   SearchInNeighbors/Fuse  -> fuse_neighbors: fuse_match (the best-match
-                             kernel K1 over all targets' cameras) + host merge
+                             kernel K1 over the targets' cameras) + host merge
   LocalBundleAdjustment   -> optim/ba.bundle_adjust_interruptible
   KeyFrameCulling         -> cull_keyframes (host)
+
+Each stage snapshots the store under `lock`, runs its device work without
+it, and commits under it with validity re-checks, so that an async tracker
+never waits for a device solve. With a `yield_gate` (the worker's
+tracker-priority gate) the launches are bounded: triangulation pairs in
+chunks of 2, fusion targets in groups of 6, BA one LM iteration a chunk
+with 16 PCG steps; without one, each stage is one launch.
 
 The reference pads each device problem to a shape bucket so that XLA
 compiles a handful of programs; PyTorch compiles nothing, so the port runs
@@ -19,7 +27,7 @@ every problem at its own size (the padding rows change no result).
 """
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -151,8 +159,7 @@ def fuse_match(mc6, intr, cams, feats: FrameFeatures, pose, pts: LocalPoints, ra
 
 
 class _NullLock:
-    """No-op context manager: the sequential pipeline needs no locking (the
-    async worker's lock comes with that worker)."""
+    """No-op context manager: the sequential pipeline needs no locking."""
 
     def __enter__(self):
         return self
@@ -164,20 +171,34 @@ class _NullLock:
 class LocalMapper:
     """Host orchestration of the local-mapping pipeline over a MapStore.
     `match_fn` is the best-match kernel's wrapper (or its plain version)
-    that fusion matches with."""
+    that fusion matches with. `lock` (the system's map lock in async mode)
+    is held for store bookkeeping and commits only; `yield_gate`, when set,
+    is called before each device launch."""
 
-    def __init__(self, store: MapStore, rig: MultiCamRig, match_fn: Callable = masked_best_match_cams):
+    # a forced (non-interruptible) local BA at least every N keyframes under
+    # sustained queue pressure (see run)
+    MAX_BA_DEFERRALS = 3
+
+    def __init__(self, store: MapStore, rig: MultiCamRig, match_fn: Callable = masked_best_match_cams,
+                 lock=None):
         self.store = store
         self.rig = rig
         self.device = rig.Mc.device
         self.mc6 = rig.Mc_cayley.to(torch.float32)
         self.intr = rig.cams.to_vector()
         self.recent_points: List[Tuple[int, int]] = []  # (pt_id, created_kf)
-        self.lock = _NullLock()
+        self.lock = lock if lock is not None else _NullLock()
+        self.yield_gate: Optional[Callable[[], None]] = None
         self.match_fn = match_fn
+        # consecutive keyframes whose BA was deferred by interrupt pressure
+        self._ba_deferred = 0
 
     def _t(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=self.device)
+
+    def _yield(self):
+        if self.yield_gate is not None:
+            self.yield_gate()
 
     # ------------------------------------------------------------------
     def process_new_keyframe(self, k: int):
@@ -212,8 +233,10 @@ class LocalMapper:
     def create_new_points(self, k: int, n_neighbors: int = 5) -> int:
         """CreateNewMapPoints (cLocalMapping.cpp:224-387): triangulate k
         against its best covisible neighbours (baseline / median-depth gate
-        first), all pairs in one device program and one readback, then
-        commit the new points on the host."""
+        first). Snapshot under the lock; the pairs on the device without it
+        (every pair in one launch, or chunks of 2 under the yield gate),
+        launched first and read back after; the new points committed under
+        the lock, skipping a feature claimed meanwhile."""
         s = self.store
         C, K = s.cfg.n_cams, s.cfg.feats_per_cam
         th = 2.0 * s.cfg.desc_bytes   # TH_LOW
@@ -231,18 +254,27 @@ class LocalMapper:
             if not pairs:
                 return 0
             js = np.asarray(pairs)
-            free = (s.kf_point == BAD_ID) & s.kf_feat_valid
-            out = triangulate_pairs(
-                self.mc6, self._t(pose1), self._t(s.kf_pose[js]),
-                self._t(s.kf_uv[k].reshape(C, K, 2)), self._t(s.kf_rays[k].reshape(C, K, 3)),
-                self._t(s.kf_desc[k].reshape(C, K, -1)), self._t(free[k].reshape(C, K)),
-                self._t(s.kf_uv[js].reshape(-1, C, K, 2)), self._t(s.kf_rays[js].reshape(-1, C, K, 3)),
-                self._t(s.kf_desc[js].reshape(len(js), C, K, -1)), self._t(free[js].reshape(-1, C, K)),
-                self.intr, th_desc=th,
-                ang1=self._t(s.kf_angle[k].reshape(C, K)), ang2s=self._t(s.kf_angle[js].reshape(-1, C, K)),
-                check_rotation=True,
-            )
-        packed = out.packed.cpu().numpy()                                # [J, CK, 5]
+            rows = np.concatenate([[k], js])
+            free = (s.kf_point[rows] == BAD_ID) & s.kf_feat_valid[rows]
+            snap = dict(free1=free[0].reshape(C, K), free2=free[1:].reshape(-1, C, K),
+                        uv1=s.kf_uv[k].reshape(C, K, 2).copy(), rays1=s.kf_rays[k].reshape(C, K, 3).copy(),
+                        desc1=s.kf_desc[k].reshape(C, K, -1).copy(), ang1=s.kf_angle[k].reshape(C, K).copy(),
+                        poses2=s.kf_pose[js], uv2=s.kf_uv[js].reshape(-1, C, K, 2),
+                        rays2=s.kf_rays[js].reshape(-1, C, K, 3), desc2=s.kf_desc[js].reshape(len(js), C, K, -1),
+                        ang2=s.kf_angle[js].reshape(-1, C, K))
+        chunk = 2 if self.yield_gate is not None else len(pairs)
+
+        def launch(sl):
+            self._yield()
+            return triangulate_pairs(
+                self.mc6, self._t(pose1), self._t(snap["poses2"][sl]),
+                self._t(snap["uv1"]), self._t(snap["rays1"]), self._t(snap["desc1"]), self._t(snap["free1"]),
+                self._t(snap["uv2"][sl]), self._t(snap["rays2"][sl]), self._t(snap["desc2"][sl]),
+                self._t(snap["free2"][sl]), self.intr, th_desc=th,
+                ang1=self._t(snap["ang1"]), ang2s=self._t(snap["ang2"][sl]), check_rotation=True,
+            ).packed
+        outs = [launch(slice(i0, i0 + chunk)) for i0 in range(0, len(pairs), chunk)]
+        packed = np.concatenate([o.cpu().numpy() for o in outs])          # [J, CK, 5]
         created = 0
         new_ids: List[int] = []
         with self.lock:
@@ -254,7 +286,7 @@ class LocalMapper:
                 X, f2 = packed[i, :, :3], packed[i, :, 3].astype(np.int64)
                 for f1 in np.nonzero(packed[i, :, 4] > 0.5)[0]:
                     if s.kf_point[k, f1] != BAD_ID or s.kf_point[j, f2[f1]] != BAD_ID:
-                        continue  # claimed by an earlier pair
+                        continue  # claimed by an earlier pair or the tracker
                     p = s.add_point(X[f1], s.kf_desc[k, f1], s.kf_dmask[k, f1], first_kf=k,
                                     normal=np.zeros(3, np.float32), min_dist=0.1, max_dist=MAX_DIST)
                     s.add_observation(k, int(f1), p)
@@ -283,8 +315,10 @@ class LocalMapper:
         """SearchInNeighbors (cLocalMapping.cpp:388-458): project k's points
         into its 1st- and 2nd-ring neighbours and fuse duplicate
         observations. Each target keyframe's body pose folds into its
-        cameras' extrinsics (Mc' = Mt_j Mc_c, identity body pose), so all
-        targets x C cameras are one tiled rig and one K1 launch."""
+        cameras' extrinsics (Mc' = Mt_j Mc_c, identity body pose), so the
+        targets x C cameras are one tiled rig: one K1 launch for all of them,
+        or one a group of 6 under the yield gate. Snapshot, launches and
+        commit as in create_new_points."""
         s = self.store
         C, K = s.cfg.n_cams, s.cfg.feats_per_cam
         with self.lock:
@@ -301,28 +335,34 @@ class LocalMapper:
             if len(pts) == 0 or len(tj) == 0:
                 return 0
             J = len(tj)
-            lp = LocalPoints(
-                X=self._t(s.pt_X[pts]), desc=self._t(s.pt_desc[pts]),
-                min_dist=self._t(s.pt_min_dist[pts]), max_dist=self._t(s.pt_max_dist[pts]),
-                valid=torch.ones(len(pts), dtype=torch.bool, device=self.device),
-                normal=self._t(s.pt_normal[pts]),
-            )
-            Mc = self.rig.Mc.cpu().numpy().astype(np.float64)
-            mc_eff = hom_to_cayley_np(cayley_to_hom_np(s.kf_pose[tj])[:, None] @ Mc[None]).reshape(J * C, 6)
-            feats_all = FrameFeatures(
-                uv=self._t(s.kf_uv[tj].reshape(J * C, K, 2)),
-                response=torch.zeros((J * C, K), dtype=torch.float32, device=self.device),
-                octave=self._t(s.kf_octave[tj].reshape(J * C, K)),
-                angle=self._t(s.kf_angle[tj].reshape(J * C, K)),
-                rays=self._t(s.kf_rays[tj].reshape(J * C, K, 3)),
-                desc=self._t(s.kf_desc[tj].reshape(J * C, K, -1)),
-                dmask=self._t(s.kf_dmask[tj].reshape(J * C, K, -1)),
-                valid=self._t(s.kf_feat_valid[tj].reshape(J * C, K)),
-            )
-            _, _, _, packed = fuse_match(self._t(mc_eff), self.intr.repeat(J, 1), self.rig.cams.tile(J),
-                                         feats_all, torch.zeros(6, dtype=torch.float32, device=self.device),
-                                         lp, radius, match_fn=self.match_fn)
-        packed = packed.cpu().numpy()                                    # [3, J*C*K]
+            lp_np = dict(X=s.pt_X[pts], desc=s.pt_desc[pts], min_dist=s.pt_min_dist[pts],
+                         max_dist=s.pt_max_dist[pts], normal=s.pt_normal[pts])
+            t_np = dict(pose=s.kf_pose[tj], uv=s.kf_uv[tj].reshape(J * C, K, 2),
+                        octave=s.kf_octave[tj].reshape(J * C, K), angle=s.kf_angle[tj].reshape(J * C, K),
+                        rays=s.kf_rays[tj].reshape(J * C, K, 3), desc=s.kf_desc[tj].reshape(J * C, K, -1),
+                        dmask=s.kf_dmask[tj].reshape(J * C, K, -1), valid=s.kf_feat_valid[tj].reshape(J * C, K))
+        lp = LocalPoints(X=self._t(lp_np["X"]), desc=self._t(lp_np["desc"]), min_dist=self._t(lp_np["min_dist"]),
+                         max_dist=self._t(lp_np["max_dist"]),
+                         valid=torch.ones(len(pts), dtype=torch.bool, device=self.device),
+                         normal=self._t(lp_np["normal"]))
+        Mc = self.rig.Mc.cpu().numpy().astype(np.float64)
+        mc_eff = hom_to_cayley_np(cayley_to_hom_np(t_np["pose"])[:, None] @ Mc[None]).reshape(J * C, 6)
+        group = 6 if self.yield_gate is not None else J
+
+        def launch(g0):
+            n, rows = min(group, J - g0), slice(g0 * C, (g0 + group) * C)
+            feats = FrameFeatures(
+                uv=self._t(t_np["uv"][rows]),
+                response=torch.zeros((n * C, K), dtype=torch.float32, device=self.device),
+                octave=self._t(t_np["octave"][rows]), angle=self._t(t_np["angle"][rows]),
+                rays=self._t(t_np["rays"][rows]), desc=self._t(t_np["desc"][rows]),
+                dmask=self._t(t_np["dmask"][rows]), valid=self._t(t_np["valid"][rows]))
+            self._yield()
+            return fuse_match(self._t(mc_eff[rows]), self.intr.repeat(n, 1), self.rig.cams.tile(n), feats,
+                              torch.zeros(6, dtype=torch.float32, device=self.device), lp, radius,
+                              match_fn=self.match_fn)[3]
+        outs = [launch(g0) for g0 in range(0, J, group)]
+        packed = np.concatenate([o.cpu().numpy() for o in outs], axis=1)   # [3, J*C*K]
         assign_all = packed[0].astype(np.int64).reshape(J, C * K)
         keep_all = (packed[2] > 0.5).reshape(J, C * K)
         fused = 0
@@ -352,15 +392,17 @@ class LocalMapper:
         return fused
 
     # ------------------------------------------------------------------
-    def local_ba(self, k: int, max_iters: int = 10):
+    def local_ba(self, k: int, max_iters: int = 10, interrupt=None):
         """LocalBundleAdjustment (cOptimizer.cpp:489-909): free = k and its
         covisible neighbourhood, anchors = the other keyframes that observe
-        the local points; 5 LM iterations a chunk, one host read a chunk."""
+        the local points. The gather and the write-back hold the lock; the
+        LM solve runs without it, abortable between chunks by `interrupt`
+        (5 iterations a chunk, or 1 under the yield gate)."""
         with self.lock:
             prob = self._gather_local_ba(k)
         if prob is None:
             return
-        out, obs = self._solve_ba(prob, max_iters)
+        out, obs = self._solve_ba(prob, max_iters, interrupt)
         with self.lock:
             self._writeback_ba(prob, out, obs)
 
@@ -397,10 +439,12 @@ class LocalMapper:
                         points=torch.ones(nP, dtype=torch.bool, device=self.device))
         return params, obs, free
 
-    def _solve_ba(self, prob, max_iters: int):
+    def _solve_ba(self, prob, max_iters: int, interrupt=None):
         params, obs, free = self._problem_tensors(prob)
-        out, _ = bundle_adjust_interruptible(params, obs, free, max_iters=max_iters, cg_iters=24,
-                                             chunk_iters=5)
+        gated = self.yield_gate is not None
+        out, _ = bundle_adjust_interruptible(params, obs, free, max_iters=max_iters, cg_iters=16 if gated else 24,
+                                             interrupt=interrupt, chunk_iters=1 if gated else 5,
+                                             pre_step=self._yield)
         return out, obs
 
     def _writeback_ba(self, prob, out: BAParams, obs: Observations):
@@ -432,19 +476,28 @@ class LocalMapper:
                 s.erase_keyframe(j)
 
     # ------------------------------------------------------------------
-    def run(self, k: int, do_ba: bool = True) -> int:
-        """One pass of the mapping pipeline for new keyframe k (the
-        sequential pipeline: no newer keyframe ever waits, so nothing is
-        deferred)."""
+    def run(self, k: int, do_ba: bool = True, interrupt=None) -> int:
+        """One pass of the mapping pipeline for new keyframe k.
+        `interrupt()` (optional) is true when a newer keyframe waits or the
+        tracker asked for an insertion (InterruptBA, cLocalMapping.cpp:515):
+        the reference's backlog order (:69-129) then triangulates always,
+        fuses only when nothing newer waits, and defers BA, except that a
+        BA is forced after MAX_BA_DEFERRALS deferrals in a row."""
         with self.lock:
             if not self.store.kf_valid[k]:
-                return 0
+                return 0  # culled while queued
             self.process_new_keyframe(k)
             self.cull_map_points(k)
         n_new = self.create_new_points(k)
-        self.fuse_neighbors(k)
-        if do_ba and self.store.kf_valid.sum() >= 3:
-            self.local_ba(k)
+        if not (interrupt is not None and interrupt()):
+            self.fuse_neighbors(k)
+        force_ba = self._ba_deferred >= self.MAX_BA_DEFERRALS
+        skip_ba = interrupt is not None and interrupt() and not force_ba
+        if do_ba and self.store.kf_valid.sum() >= 3 and not skip_ba:
+            self._ba_deferred = 0
+            self.local_ba(k, interrupt=interrupt)
             with self.lock:
                 self.cull_keyframes(k)   # KeyFrameCulling follows BA (:100-104)
+        elif do_ba:
+            self._ba_deferred += 1
         return n_new

@@ -1,6 +1,7 @@
 """Loop closing: detection, Sim3 estimation, correction and the essential
-graph (port of `multicol_slam_tpu/slam/loop_closing.py`, the sequential
-pipeline: it runs after local mapping of each keyframe, inline).
+graph (port of `multicol_slam_tpu/slam/loop_closing.py`). It runs after
+local mapping of each keyframe: inline in sync mode, on the async mapping
+worker otherwise (slam/system.py).
 
 The cLoopClosing thread (cLoopClosing.cpp:63-668):
 
@@ -25,10 +26,13 @@ The cLoopClosing thread (cLoopClosing.cpp:63-668):
                  edges on the corrected poses; record the loop edge. No
                  global BA afterwards (the reference removed ORB-SLAM2's).
 
-Each CorrectLoop phase is host numpy (a commit) or a device phase between
-commits (the fusion projections, the graph solve and the point remap), the
-snapshot -> device -> commit split the async worker will lock around; the
-commits' wall times are kept in `locked_phase_ms`.
+Detection and the Sim3 check read the store without the map lock (stale
+reads are benign: only the worker creates and erases points and
+keyframes). CorrectLoop alternates host-numpy commits, each under `lock`,
+with device phases between them (the fusion projections, the graph solve
+and the point remap) that run with the lock released; the time each
+commit holds the lock is kept in `locked_phase_ms`, and the tracker
+inserts no keyframe while `loop_correcting` is set.
 
 Conventions: a stored pose M_t maps body -> world; the Sim3 vertices are
 S_bw (world -> body), so M_t = inv(SE3(S_bw)) with the translation divided
@@ -54,7 +58,7 @@ from multicol_slam_tpu_torch.optim.ba import (
     Sim3Edges, Sim3Obs, _project_body, optimize_essential_graph, optimize_sim3,
 )
 from multicol_slam_tpu_torch.slam.features import FrameFeatures
-from multicol_slam_tpu_torch.slam.local_mapping import fuse_match
+from multicol_slam_tpu_torch.slam.local_mapping import _NullLock, fuse_match
 from multicol_slam_tpu_torch.slam.map_store import (
     MapStore, cayley_to_hom_np, hom_inverse_np, hom_to_cayley_np,
 )
@@ -91,12 +95,18 @@ class LoopCloser:
     """`match_fn` is the best-match kernel's wrapper (or its plain version)
     that the Sim3 check and SearchAndFuse project with. `sim3_sampler(
     kf_frame_id, n) -> [300, 3]` gives the Sim3 RANSAC's hypotheses (default:
-    drawn from `generator`)."""
+    drawn from `generator`). `lock`: the system's map lock in async mode;
+    `yield_gate`, when set, is called before each device phase."""
 
     def __init__(self, store: MapStore, rig: MultiCamRig, voc: Optional[Vocabulary] = None,
                  match_fn: Callable = masked_best_match_cams, sim3_sampler: Optional[Callable] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, lock=None):
         self.store = store
+        self.lock = lock if lock is not None else _NullLock()
+        self.yield_gate: Optional[Callable[[], None]] = None
+        # True while CorrectLoop runs: the tracker inserts no keyframe
+        # meanwhile (cTracking.cpp:899-901)
+        self.loop_correcting = False
         self.rig = rig
         self.device = rig.Mc.device
         self.voc = voc
@@ -108,8 +118,8 @@ class LoopCloser:
         self.mc6 = rig.Mc_cayley.to(torch.float32)
         self.intr = rig.cams.to_vector()
         self.n_loops_closed = 0
-        # wall ms of each commit phase of CorrectLoop, and the [start, end]
-        # (perf_counter) of each CorrectLoop
+        # ms each commit phase of CorrectLoop held the lock, and the [start,
+        # end] (perf_counter) of each CorrectLoop
         self.locked_phase_ms: List[float] = []
         self.correct_spans: List[Tuple[float, float]] = []
         self._bootstrap_descs: List[np.ndarray] = []
@@ -276,6 +286,7 @@ class LoopCloser:
         """ComputeSim3 (cLoopClosing.cpp:261-461), then CorrectLoop, for one
         candidate."""
         s = self.store
+        self._yield()
         # mutual descriptor matches between the map-pointed features of the
         # two keyframes (the capability of SearchByBoW, by a dense Hamming
         # matrix)
@@ -363,19 +374,27 @@ class LoopCloser:
         return True
 
     # ------------------------------------------------------------------
+    def _yield(self):
+        if self.yield_gate is not None:
+            self.yield_gate()
+
     @contextlib.contextmanager
     def _commit(self):
-        """A commit phase of CorrectLoop, its wall ms recorded."""
-        t0 = time.perf_counter()
-        yield
-        self.locked_phase_ms.append((time.perf_counter() - t0) * 1e3)
+        """A commit phase of CorrectLoop: under the lock, the ms it held the
+        lock recorded."""
+        with self.lock:
+            t0 = time.perf_counter()
+            yield
+            self.locked_phase_ms.append((time.perf_counter() - t0) * 1e3)
 
     def _correct(self, k: int, cand: int, v7_kc: np.ndarray, loop_match: Dict[int, int], loop_pts: np.ndarray):
         """CorrectLoop (cLoopClosing.cpp:464-668). S_kc maps cand-body points
         into k's body, so k's corrected world -> body is S_kc o T_bw(cand).
-        The commits are host numpy; the SearchAndFuse projections, the graph
-        solve and the point remap run between them."""
+        The commits are host numpy under the lock; the SearchAndFuse
+        projections, the graph solve and the point remap run between them
+        with the lock released."""
         s = self.store
+        self.loop_correcting = True
         t_start = time.perf_counter()
         try:
             with self._commit():
@@ -386,18 +405,21 @@ class LoopCloser:
             fuse_assign: Dict[int, np.ndarray] = {}
             for j in corrected:
                 if s.kf_valid[j] and len(loop_pts_v):
+                    self._yield()
                     fuse_assign[j] = self._project_loop_points(j, s.kf_pose[j], loop_pts_v, radius=6.0)
             with self._commit():
                 self._commit_fuse(fuse_assign, loop_pts_v)
                 s.update_point_stats_many(np.asarray(sorted(remapped), np.int64))
                 prob = self._eg_build(k, cand, corrected, snapshot, remap_ref)
             if prob is not None:
+                self._yield()
                 sol = self._eg_solve(prob)
                 with self._commit():
                     self._eg_commit(prob, sol)
             with self._commit():
                 s.loop_edges.append((k, cand))
         finally:
+            self.loop_correcting = False
             self.correct_spans.append((t_start, time.perf_counter()))
 
     def _propagate_correction(self, k: int, cand: int, v7_kc: np.ndarray, loop_match: Dict[int, int]):

@@ -25,6 +25,7 @@ import numpy as np
 from multicol_slam_tpu_torch import native
 
 BAD_ID = -1
+_POPCOUNT = np.asarray([bin(i).count("1") for i in range(256)], np.uint8)   # bits set in each byte
 
 
 def cayley_to_rot_np(c: np.ndarray) -> np.ndarray:
@@ -367,7 +368,10 @@ class MapStore:
     def update_point_stats_many(self, ps: np.ndarray):
         """Recompute each point's distinctive descriptor (median-Hamming
         medoid, cMapPoint.cpp:297-391), mean viewing normal and scale-
-        invariance distance range (:453-497), with one table scan."""
+        invariance distance range (:453-497), with one table scan. Points
+        with the same number of observations are computed together (the
+        reference loops point by point; the results are the same, to the
+        bit: tests/test_torch_map_store.py)."""
         ps = np.unique(np.asarray(ps, np.int64))
         ps = ps[(ps >= 0) & self.pt_valid[ps]]
         if len(ps) == 0:
@@ -379,38 +383,40 @@ class MapStore:
         order = np.argsort(pid, kind="stable")
         ks_all, fs_all, pid = ks_all[order], fs_all[order], pid[order]
         starts = np.searchsorted(pid, ps, side="left")
-        ends = np.searchsorted(pid, ps, side="right")
+        counts = np.searchsorted(pid, ps, side="right") - starts
         # body centres of all observing keyframes (camera offsets are small
         # against scene depth)
         centers_all = self.kf_pose[ks_all][:, 3:6].astype(np.float64)
         sf = self.cfg.scale_factor
         inv_band = 1.0 / (sf ** (self.cfg.n_levels - 1))
-        for p, s0, s1 in zip(ps, starts, ends):
-            if s1 <= s0:
-                continue
-            ks = ks_all[s0:s1]
-            fs = fs_all[s0:s1]
-            descs = self.kf_desc[ks, fs]  # [M, B]
-            if len(ks) > 1:
+        for M in np.unique(counts[counts > 0]):
+            sel = counts == M
+            p, rows = ps[sel], starts[sel][:, None] + np.arange(M)          # [n], [n, M]
+            ks, fs = ks_all[rows], fs_all[rows]
+            descs, masks = self.kf_desc[ks, fs], self.kf_dmask[ks, fs]       # [n, M, B]
+            if M > 1:
                 # masked median-Hamming medoid: d = (popc(x & m_i) +
                 # popc(x & m_j)) / 2; all-255 masks give the plain medoid
-                masks = self.kf_dmask[ks, fs]
-                x = descs[:, None, :] ^ descs[None, :, :]
-                xa = np.unpackbits(x & masks[:, None, :], axis=-1).sum(-1)
-                xb = np.unpackbits(x & masks[None, :, :], axis=-1).sum(-1)
-                best = int(np.argmin(np.median(0.5 * (xa + xb), axis=1)))
+                x = descs[:, :, None, :] ^ descs[:, None, :, :]              # [n, M, M, B]
+                xa = _POPCOUNT[x & masks[:, :, None, :]].sum(-1, dtype=np.int64)
+                xb = _POPCOUNT[x & masks[:, None, :, :]].sum(-1, dtype=np.int64)
+                best = np.argmin(np.median(0.5 * (xa + xb), axis=2), axis=1)
             else:
-                best = 0
-            self.pt_desc[p] = descs[best]
-            self.pt_dmask[p] = self.kf_dmask[ks[best], fs[best]]
-            vecs = self.pt_X[p][None] - centers_all[s0:s1]
+                best = np.zeros(len(p), np.int64)
+            ar = np.arange(len(p))
+            self.pt_desc[p] = descs[ar, best]
+            self.pt_dmask[p] = masks[ar, best]
+            vecs = self.pt_X[p][:, None, :] - centers_all[rows]              # [n, M, 3] float64
             dists = np.linalg.norm(vecs, axis=-1) + 1e-12
-            nrm = (vecs / dists[:, None]).mean(0)
-            n = np.linalg.norm(nrm)
-            self.pt_normal[p] = nrm / n if n > 0 else nrm
-            level = int(self.kf_octave[ks[0], fs[0]])
-            self.pt_max_dist[p] = dists[0] * (sf ** level)
-            self.pt_min_dist[p] = self.pt_max_dist[p] * inv_band
+            nrm = (vecs / dists[..., None]).mean(1)
+            n = np.linalg.norm(nrm, axis=-1)
+            pos = n > 0
+            nrm[pos] = nrm[pos] / n[pos, None]
+            self.pt_normal[p] = nrm
+            levels = self.kf_octave[ks[:, 0], fs[:, 0]]
+            self.pt_max_dist[p] = dists[:, 0] * np.asarray([sf ** int(lv) for lv in levels])
+            for q in p:   # float32 times a float, as the reference's scalar does
+                self.pt_min_dist[q] = self.pt_max_dist[q] * inv_band
 
     # ------------------------------------------------------------ BA export
     def ba_problem(self, kf_ids: np.ndarray, fixed_kf_ids: np.ndarray = None):

@@ -106,6 +106,41 @@ def test_same_operations_same_arrays(stores):
     _assert_same(js, ts)
 
 
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_point_stats_match_the_reference_loop(seed):
+    """update_point_stats_many (grouped by observation count in the port,
+    point by point in the reference) on points seen by 1-12 keyframes with
+    random stability masks and octaves: the same arrays, to the bit."""
+    cfg = dict(CFG, max_keyframes=16, max_points=300, feats_per_cam=40, n_levels=4)
+    js, ts = jms.MapStore(jms.MapConfig(**cfg)), tms.MapStore(tms.MapConfig(**cfg))
+    rng = np.random.default_rng(seed)
+    C, K, F = cfg["n_cams"], cfg["feats_per_cam"], cfg["n_cams"] * cfg["feats_per_cam"]
+    for k in range(12):
+        rays = rng.normal(size=(C, K, 3)).astype(np.float32)
+        f = dict(uv=rng.uniform(0, 200, (C, K, 2)).astype(np.float32), response=rng.uniform(size=(C, K)),
+                 octave=rng.integers(0, 4, (C, K)), angle=rng.uniform(0, 6, (C, K)),
+                 rays=rays / np.linalg.norm(rays, axis=-1, keepdims=True),
+                 desc=rng.integers(0, 256, (C, K, 32), dtype=np.uint8),
+                 dmask=rng.integers(0, 256, (C, K, 32), dtype=np.uint8), valid=np.ones((C, K), bool))
+        pose = rng.normal(0, 2.0, 6).astype(np.float32)
+        js.add_keyframe(pose, JFeatures(**f), 0.04 * k, k)
+        ts.add_keyframe(pose, convert.frame_features_from_numpy(**f, device="cpu"), 0.04 * k, k)
+    for i in range(250):
+        X = rng.normal(0, 5, 3).astype(np.float32)
+        args = (X, js.kf_desc[0, i % F], js.kf_dmask[0, i % F], 0, np.zeros(3, np.float32), 0.1, 25.0)
+        p = js.add_point(*args)
+        assert ts.add_point(*args) == p
+        for k in rng.choice(12, int(rng.integers(1, 13)), replace=False):
+            f = int(rng.integers(0, F))
+            if js.kf_point[k, f] < 0:
+                js.add_observation(int(k), f, p)
+                ts.add_observation(int(k), f, p)
+    js.update_point_stats_many(np.arange(250))
+    ts.update_point_stats_many(np.arange(250))
+    _assert_same(js, ts)
+    assert len(np.unique(ts.pt_nobs[:250])) >= 10
+
+
 @pytest.mark.parametrize("name", ["cayley_to_rot_np", "cayley_to_hom_np", "rot_to_cayley_np", "hom_to_cayley_np",
                                   "hom_inverse_np"])
 def test_pose_helpers_equal(name):

@@ -32,7 +32,7 @@ def test_no_jax_or_yaml_imports(path):
 
 
 # every module the port holds so far (the tracking step, the map bootstrap,
-# the sync system, then loop closing) -> its counterpart in the JAX package
+# the system, loop closing, the CLI) -> its counterpart in the JAX package
 MODULES = {
     "convert": None, "models/camera": "models/camera", "models/rig": "models/rig",
     "ops/best_match": "ops/pallas_match", "ops/brief": "ops/brief", "ops/fast": "ops/fast",
@@ -44,6 +44,9 @@ MODULES = {
     "device": None, "native": "native", "slam/map_store": "slam/map_store",
     "slam/local_mapping": "slam/local_mapping", "slam/system": "slam/system", "io/trajectory": "io/trajectory",
     "models/vocab": "models/vocab", "slam/loop_closing": "slam/loop_closing",
+    # the CLI and the YAML loaders (utils/config, above); the port's eval
+    # entry, whose counterpart is the repository's root eval.py
+    "cli": "cli", "eval": None,
 }
 
 
@@ -54,11 +57,49 @@ def test_module_is_checked(module):
         assert (ROOT / "multicol_slam_tpu" / f"{MODULES[module]}.py").is_file()
 
 
+LAZY = {"imageio", "PIL"}   # image readers the card's machine lacks: only inside cli.load_gray
+
+
+def _imports_with_function(path: Path):
+    """(imported root, the enclosing function's name or None) of each import."""
+    def walk(node, fn):
+        for child in ast.iter_child_nodes(node):
+            inner = child.name if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)) else fn
+            if isinstance(child, ast.Import):
+                yield from ((a.name.split(".")[0], fn) for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0 and child.module:
+                yield child.module.split(".")[0], fn
+            yield from walk(child, inner)
+    yield from walk(ast.parse(path.read_text(), filename=str(path)), None)
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_image_readers_only_inside_load_gray(path):
+    """imageio and pillow are imported lazily, by `cli.load_gray` alone, for
+    formats other than binary PGM/PPM."""
+    for root, fn in _imports_with_function(path):
+        if root in LAZY:
+            assert path == ROOT / "multicol_slam_tpu_torch" / "cli.py" and fn == "load_gray", \
+                f"{path.relative_to(ROOT)} imports {root} in {fn or 'the module'}"
+
+
 def test_kernel_source_ships_with_the_package():
     from multicol_slam_tpu_torch.ops import best_match
 
     assert best_match.SOURCE.is_file()
     assert best_match.BUILD_DIR.parent == best_match.SOURCE.parent.parent
+
+
+def test_package_data_lists_every_source():
+    """pyproject.toml ships every source that the port builds at first use
+    (csrc/*.cu by nvcc, csrc/*.cpp by g++)."""
+    from multicol_slam_tpu_torch import native
+    from multicol_slam_tpu_torch.ops import best_match
+
+    text = (ROOT / "pyproject.toml").read_text()
+    line = next(ln for ln in text.splitlines() if ln.startswith("multicol_slam_tpu_torch ="))
+    for src in (best_match.SOURCE, native.SOURCE):
+        assert f'"csrc/*{src.suffix}"' in line, (src.name, line)
 
 
 def _entry_points():
