@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's tracking step, map bootstrap, system (sync and
-async), loop closing, CLI and eval entry on one CUDA card.
+async), loop closing, CLI and eval entry, with ORB and with mdBRIEF's
+learned masks, on one CUDA card.
 
     python3 chip_smoke.py [--reloc-dump NPZ]
 
@@ -43,8 +44,9 @@ Phases, each reported on its own lines:
   8. captured: K1 on the main path's own launches (tracking stages 1 and
      2, the bootstrap's forward and backward window match, the system's
      last fusion, the loop closer's last Sim3-check and SearchAndFuse
-     projections): P, the pairs that pass the window and band; kernel ==
-     plain exactly; times.
+     projections, the worker-stream fusions of 12 and 13, and phase 15's
+     masked tracking stages, fusion and worker-stream fusion): P, the
+     pairs that pass the window and band; kernel == plain exactly; times.
   9. split: K1 (tracking stage 1, bootstrap forward) and K2 at every
      target chunk the kernel takes (64, 128, 256): exact at each, and the
      device time of each beside the wrappers' own pick.
@@ -60,7 +62,7 @@ Phases, each reported on its own lines:
      (its mapping stages synchronised). One line a frame; then the frame
      it initialized on, frames tracked, keyframes, map points, ATE against
      the world's poses, K1 launches by caller, times by stage, and gates on
-     them. A replay with the plain matcher over the first 30 frames must
+     them. A replay with the plain matcher over the first 20 frames must
      give the same states, inliers and keyframes, and bit-identical
      keyframe poses at frame 30. Then
      the relocalization branch on three frames against the final map;
@@ -104,15 +106,32 @@ Phases, each reported on its own lines:
  14. eval (C3): `python3 -m multicol_slam_tpu_torch.eval --seeds 3` and
      `--async --seeds 3` (seeds 7-9, 25 frames): medians < 0.2 m, and seed
      7 >= 15 of 25 tracked in both modes.
+ 15. mdbrief: the system recipe with mdBRIEF's learned stability masks
+     (every matcher on the masked distance at x0.5 thresholds). (a) one
+     frame extracted as ORB, dBRIEF and mdBRIEF: shapes, masks (dBRIEF's
+     all 0xFF, mdBRIEF's not), ms a frame by CUDA events; (b) the sync
+     system over the 60 frames, instrumented as phase 10, every K1 launch
+     masked at every caller (counted by caller through the match_fn), the
+     last masked launches of tracking stages 1 and 2 and of fusion
+     captured for phase 8; gates around the JAX package's CPU result on
+     the recipe (tests/torch_mdbrief_reference.py): initialized by its
+     frame + 2, tracked >= its - 2, keyframes within +-2, points within
+     +-20 %, ATE <= 2x; the plain-matcher replay of the first 12 frames
+     identical; (c) `cli.main` async over phase 13's dataset with the masks
+     turned on in its settings: >= 1 keyframe mapped on the worker, no
+     worker error, the worker's last masked fusion launch exact on its
+     stream, tracked >= the reference's - 2, ATE <= 4x its; (d) `eval
+     --mdbrief --seeds 3` beside the loop pool, as phase 14's: median <
+     0.25 m, seed 7 >= 15 of 25 tracked.
 Each time stands beside two bounds: the bytes at the HBM rate against the
 products of the P pairs that pass at the int8 tensor-core peak (what this
 run's data needs), and the dense one that counts every pair, as the TPU
 kernel computes them.
 Then one JSON line of kernels, and last {"ok": true, "device": {...}}.
-The order of the run: 1-5, 6-7, 10, 11 (14 and 13's dataset beside it),
-12, 13, then 8 and 9 on the captured launches (the worker-stream fusion
-launches of 12 and 13 among them). Every phase runs before a failed gate
-of 12-14 raises.
+The order of the run: 1-5, 6-7, 10, 11 (14, 15's eval and 13's dataset
+beside it), 12, 13, 15, then 8 and 9 on the captured launches (the
+worker-stream fusion launches of 12, 13 and 15 among them). Every phase
+runs before a failed gate of 12-15 raises.
 Any failure raises and exits non-zero. Needs one card; no CPU fallback.
 """
 import json
@@ -222,20 +241,23 @@ def check_border_ties(got, borders):
             raise AssertionError(f"tie across the chunk border {b}: idx {idx[:, i]}, best {best[:, i]}")
 
 
-def recording_match(store, outputs=None):
-    """A match_fn that launches K1 and keeps clones of its arguments; with
-    `outputs` (a dict), also outputs[thread name] = the launch's arguments,
-    clones of its outputs (made on the launching thread's stream) and that
-    stream: the last launch of each thread."""
+def recording_match(store, outputs=None, inner=None):
+    """A match_fn that launches K1 (through `inner`, a match_fn that does,
+    when given) and keeps clones of its arguments; with `outputs` (a dict),
+    also outputs[thread name] = the launch's arguments, clones of its
+    outputs (made on the launching thread's stream) and that stream: the
+    last launch of each thread."""
     import threading
 
     import torch
     from multicol_slam_tpu_torch.ops.best_match import masked_best_match_cams
 
+    launch = inner or masked_best_match_cams
+
     def fn(*args, **kw):
         a = dict(zip(K1_ARGS, args), **kw)
         store.append({k: v.clone() if torch.is_tensor(v) else v for k, v in a.items()})
-        out = masked_best_match_cams(*args, **kw)
+        out = launch(*args, **kw)
         if outputs is not None:
             outputs[threading.current_thread().name] = dict(
                 args=store[-1], out=tuple(o.clone() for o in out),
@@ -966,7 +988,7 @@ SYS_MIN_TRACKED = 55
 SYS_KF_RANGE = (7, 11)
 SYS_PT_RANGE = (540, 820)
 SYS_ATE_GATE = 0.045
-SYS_REPLAY_FRAMES = 30   # the plain-matcher replay's depth (it runs the first half of the run)
+SYS_REPLAY_FRAMES = 20   # the plain-matcher replay's depth (the bootstrap and the first two keyframes)
 # relocalization, called on these frames' features against the final map.
 # It is reported, not gated: its matches carry no ratio test, so ~35-42 %
 # of them are inliers at this width and 160 six-point hypotheses find the
@@ -1011,10 +1033,11 @@ def _counted(fn, kernel, key, counts, by_thread=None):
 
 def _capturing(fn, sink, outputs=None):
     """fuse_match wrapped so that `sink` holds the arguments of its last K1
-    launch, and only those (with `outputs`: its outputs, thread, stream)."""
+    launch, and only those (with `outputs`: its outputs, thread, stream).
+    The launch goes through the caller's match_fn."""
     def wrapped(*args, **kw):
         sink.clear()
-        kw["match_fn"] = recording_match(sink, outputs)
+        kw["match_fn"] = recording_match(sink, outputs, kw.get("match_fn"))
         return fn(*args, **kw)
     return wrapped
 
@@ -1100,8 +1123,9 @@ def restore(patched):
         setattr(owner, name, orig)
 
 
-def run_system(dev, boot, match_fn, instrument_it, n_frames=SYS_FRAMES, snap_at=None):
-    """MultiColSLAM over the first n_frames rendered frames, sync mode. With
+def run_system(dev, boot, match_fn, instrument_it, n_frames=SYS_FRAMES, snap_at=None, extractor=None):
+    """MultiColSLAM over the first n_frames rendered frames, sync mode, with
+    the boot's extractor settings (or `extractor`). With
     `instrument`, the K1 launches are counted by caller where each caller
     calls (module-level names of the system and the local mapper, which a
     reset does not replace; every launch must land in one), the stages are
@@ -1115,6 +1139,7 @@ def run_system(dev, boot, match_fn, instrument_it, n_frames=SYS_FRAMES, snap_at=
     from multicol_slam_tpu_torch.utils.config import SlamSettings
 
     world, images, rig, settings, _ = boot
+    settings = extractor or settings
     # loop closing on (the default): it trains its vocabulary on the third
     # inserted keyframe; no loop can close before 10 keyframes
     slam = MultiColSLAM(rig, SlamSettings(fps=25.0, extractor=settings),
@@ -1529,6 +1554,9 @@ WORKER = "mcslam-mapping"     # the async worker's thread name (slam/system.py)
 CLI_ATE_GATE = {"sync": SYS_ATE_GATE, "async": 2 * SYS_ATE_GATE}   # async is not deterministic
 EVAL_SEEDS, EVAL_FRAMES, EVAL_GATE, EVAL_MIN_TRACKED = 3, 25, 0.2, 15   # tests/test_eval_accuracy.py's gates
 EVAL_TIMEOUT = 600
+# the eval processes: phase 14's two modes and phase 15's mdBRIEF with masks
+EVAL_MODES = {"sync": [], "async": ["--async"], "mdbrief": ["--mdbrief"]}
+EVAL_MD_GATE = 0.25           # tests/test_eval_accuracy.py:49-61, mdBRIEF's
 _CHILDREN = []                # processes this script started, stopped at its end
 
 
@@ -1548,7 +1576,7 @@ def write_cli_dataset(out_dir):
 def start_beside(tmp):
     """Start the jobs that run beside the loop phase's pool: the CLI
     dataset's writer, and `python3 -m multicol_slam_tpu_torch.eval --seeds 3
-    [--async]`. Returns a callable that waits for them and returns the
+    [--async | --mdbrief]`. Returns a callable that waits for them and returns the
     dataset's directory and the evals' results."""
     import multiprocessing
 
@@ -1558,10 +1586,10 @@ def start_beside(tmp):
     writer.start()
     _CHILDREN.append(writer)
     evals = {}
-    for mode in ("sync", "async"):
+    for mode, flags in EVAL_MODES.items():
         logf = open(os.path.join(tmp, f"eval_{mode}.log"), "w")
         cmd = [sys.executable, "-m", "multicol_slam_tpu_torch.eval", "--seeds", str(EVAL_SEEDS), "--frames",
-               str(EVAL_FRAMES), "--out", os.path.join(tmp, f"eval_{mode}")] + (["--async"] if mode == "async" else [])
+               str(EVAL_FRAMES), "--out", os.path.join(tmp, f"eval_{mode}")] + flags
         proc = subprocess.Popen(cmd, cwd=root, stdout=logf, stderr=subprocess.STDOUT,
                                 env=dict(os.environ, OMP_NUM_THREADS="2"))
         _CHILDREN.append(proc)
@@ -1582,8 +1610,8 @@ def start_beside(tmp):
                 text = f.read()
             lines = [ln for ln in text.splitlines() if ln.startswith("{")]
             results[mode] = dict(rc=rc, result=json.loads(lines[-1]) if lines else None, tail=text[-1500:])
-        log(f"cli: the dataset writer and the two eval processes done {time.perf_counter() - t0:.3f} s after they "
-            f"started (beside the loop phase's pool); writer exit code {writer.exitcode}")
+        log(f"cli: the dataset writer and the {len(evals)} eval processes done {time.perf_counter() - t0:.3f} s after "
+            f"they started (beside the loop phase's pool); writer exit code {writer.exitcode}")
         return dict(dataset=dataset, writer_rc=writer.exitcode, evals=results)
     return wait
 
@@ -1626,11 +1654,11 @@ def check_worker_fusion(rec, label):
     return failed, a
 
 
-def phase_cli(dev, boot, card, dataset):
-    """C1: `cli.main` on the system phase's world written to disk, sync then
-    the async default, at full width. K1 launches counted by caller and by
-    thread (no synchronised timers); the frame times; the gates. Returns
-    what the kernels line needs."""
+def cli_run(world, settings, dataset, mode, label, card):
+    """`cli.main` over the dataset with a settings file, in `mode` ("sync":
+    --sync-mapping, or the async default), K1 launches counted by caller and
+    by thread (no synchronised timers). Logs the run; returns its summary,
+    the instrumented record and the system."""
     import torch
     from multicol_slam_tpu_torch import cli
     from multicol_slam_tpu_torch.io.trajectory import ate_rmse, load_tum_trajectory, umeyama_align
@@ -1638,88 +1666,99 @@ def phase_cli(dev, boot, card, dataset):
     from multicol_slam_tpu_torch.slam.system import WORKING
     from multicol_slam_tpu_torch.utils.geometry import cayley_to_hom
 
-    world = boot[0]
     pos = lambda p: cayley_to_hom(torch.tensor(np.asarray(p, np.float32))).numpy()[:, :3, 3]  # noqa: E731
+    run_dir = tempfile.mkdtemp(prefix=f"cli_{mode}_")
+    metrics = os.path.join(run_dir, "metrics.jsonl")
+    rec = new_record()
+    made, threads = [], []
+    orig = cli.MultiColSLAM
+
+    def recording(*a, **kw):
+        made.append(orig(*a, **kw))
+        threads.append(made[-1]._worker)
+        return made[-1]
+    patched = instrument(rec, timed=False)
+    cli.MultiColSLAM = recording
+    cwd = os.getcwd()
+    os.chdir(run_dir)
+    KERNEL.launches = 0
+    KERNEL.by_thread.clear()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["no_voc.yml", settings, dataset, dataset, "--metrics", metrics]
+                      + (["--sync-mapping"] if mode == "sync" else []))
+    finally:
+        os.chdir(cwd)
+        cli.MultiColSLAM = orig
+        restore(patched)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches, by_thread = KERNEL.launches, dict(KERNEL.by_thread)
+    slam = made[0]
+    frames = slam.trajectory
+    working = [m for m in frames if m.state == WORKING]
+    init_frame = working[0].frame_id if working else None
+    ate = float("inf")
+    if len(working) >= 3:
+        gt = pos(world.poses[[m.frame_id for m in working]])
+        ate = float(np.sqrt(np.mean(np.sum((umeyama_align(pos(np.stack([m.pose for m in working])), gt) - gt)
+                                           ** 2, -1))))
+    t_est, p_est = load_tum_trajectory(os.path.join(run_dir, "MKFTrajectoryLAFIDA.txt"))
+    ate_file = float(ate_rmse(t_est, p_est, world.timestamps, pos(world.poses)))
+    with open(metrics) as f:
+        summary = json.loads(f.read().splitlines()[-1])
+    ms_kf = [m.track_ms for m in working if m.is_keyframe]
+    ms_plain = [m.track_ms for m in working if not m.is_keyframe]
+    on_worker = rec["run_threads"].count(WORKER)
+    joined = all(t is None or not t.is_alive() for t in threads)
+    u = dict(rc=rc, init_frame=init_frame, tracked=len(working), n_kf=summary["n_keyframes"],
+             n_pt=summary["n_points"], ate=ate, ate_file=ate_file, kf_frames=[m.frame_id for m in frames
+                                                                               if m.is_keyframe],
+             mapped_on_worker=on_worker, mapping_passes=len(rec["run_threads"]),
+             kf_deferred_mapper_busy=summary["kf_deferred_mapper_busy"], worker_errors=len(slam.worker_errors),
+             worker_joined=joined, launches=launches, launches_by_thread=by_thread,
+             launches_by_caller=dict(rec["launches"]), launches_by_caller_thread=dict(rec["launches_by_thread"]),
+             ms_frame=float(np.median(ms_plain)) if ms_plain else float("nan"),
+             ms_keyframe=float(np.median(ms_kf)) if ms_kf else float("nan"),
+             frame_ms=[m.track_ms for m in frames], wall=wall)
+    log(f"{label}: `cli.main` over {len(frames)} frames of {C}x{W}x{H} in {wall:.3f} s, exit code {rc}; "
+        f"initialized on frame {init_frame}; {len(working)} tracked; keyframes on frames {u['kf_frames']}; "
+        f"{u['n_kf']} keyframes, {u['n_pt']} points; mapping passes {u['mapping_passes']}, {on_worker} on the "
+        f"worker; keyframes deferred with the mapper busy {u['kf_deferred_mapper_busy']}; worker errors "
+        f"{u['worker_errors']}, worker joined {joined}")
+    log(f"{label}: ATE (Sim3-aligned) of the track-time poses {ate:.6f} m, of MKFTrajectoryLAFIDA.txt "
+        f"(keyframe-composed, {len(t_est)} lines) {ate_file:.6f} m")
+    log(f"{label}: K1 launches {launches}, by thread {by_thread}, by caller {rec['launches']}, by caller "
+        f"and thread {rec['launches_by_thread']}")
+    log(f"{label}: ms a frame (FrameMetrics.track_ms, host clock, no synchronised timers) without a "
+        f"keyframe: {frame_ms_text(ms_plain)}; with one: {frame_ms_text(ms_kf)} [{card}]")
+    return u, rec, slam
+
+
+def phase_cli(dev, boot, card, dataset):
+    """C1: `cli.main` on the system phase's world written to disk, sync then
+    the async default, at full width; the gates. Returns what the kernels
+    line needs."""
     settings = os.path.join(dataset, "Slam_Settings_synthetic.yaml")
     out, failed, worker_args = {}, [], None
     for mode in ("sync", "async"):
-        run_dir = tempfile.mkdtemp(prefix=f"cli_{mode}_")
-        metrics = os.path.join(run_dir, "metrics.jsonl")
-        rec = new_record()
-        made, threads = [], []
-        orig = cli.MultiColSLAM
-
-        def recording(*a, **kw):
-            made.append(orig(*a, **kw))
-            threads.append(made[-1]._worker)
-            return made[-1]
-        patched = instrument(rec, timed=False)
-        cli.MultiColSLAM = recording
-        cwd = os.getcwd()
-        os.chdir(run_dir)
-        KERNEL.launches = 0
-        KERNEL.by_thread.clear()
-        t0 = time.perf_counter()
-        try:
-            rc = cli.main(["no_voc.yml", settings, dataset, dataset, "--metrics", metrics]
-                          + (["--sync-mapping"] if mode == "sync" else []))
-        finally:
-            os.chdir(cwd)
-            cli.MultiColSLAM = orig
-            restore(patched)
-        wall = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        launches, by_thread = KERNEL.launches, dict(KERNEL.by_thread)
-        slam = made[0]
-        frames = slam.trajectory
-        working = [m for m in frames if m.state == WORKING]
-        init_frame = working[0].frame_id if working else None
-        ate = float("inf")
-        if len(working) >= 3:
-            gt = pos(world.poses[[m.frame_id for m in working]])
-            ate = float(np.sqrt(np.mean(np.sum((umeyama_align(pos(np.stack([m.pose for m in working])), gt) - gt)
-                                               ** 2, -1))))
-        t_est, p_est = load_tum_trajectory(os.path.join(run_dir, "MKFTrajectoryLAFIDA.txt"))
-        ate_file = float(ate_rmse(t_est, p_est, world.timestamps, pos(world.poses)))
-        with open(metrics) as f:
-            summary = json.loads(f.read().splitlines()[-1])
-        ms_kf = [m.track_ms for m in working if m.is_keyframe]
-        ms_plain = [m.track_ms for m in working if not m.is_keyframe]
-        on_worker = rec["run_threads"].count(WORKER)
-        joined = all(t is None or not t.is_alive() for t in threads)
-        u = dict(rc=rc, init_frame=init_frame, tracked=len(working), n_kf=summary["n_keyframes"],
-                 n_pt=summary["n_points"], ate=ate, ate_file=ate_file, kf_frames=[m.frame_id for m in frames
-                                                                                   if m.is_keyframe],
-                 mapped_on_worker=on_worker, mapping_passes=len(rec["run_threads"]),
-                 kf_deferred_mapper_busy=summary["kf_deferred_mapper_busy"], worker_errors=len(slam.worker_errors),
-                 worker_joined=joined, launches=launches, launches_by_thread=by_thread,
-                 launches_by_caller=dict(rec["launches"]), launches_by_caller_thread=dict(rec["launches_by_thread"]),
-                 ms_frame=float(np.median(ms_plain)) if ms_plain else float("nan"),
-                 ms_keyframe=float(np.median(ms_kf)) if ms_kf else float("nan"),
-                 frame_ms=[m.track_ms for m in frames], wall=wall)
+        u, rec, slam = cli_run(boot[0], settings, dataset, mode, f"cli: {mode}", card)
         out[mode] = u
-        log(f"cli: {mode}: `cli.main` over {len(frames)} frames of {C}x{W}x{H} in {wall:.3f} s, exit code {rc}; "
-            f"initialized on frame {init_frame}; {len(working)} tracked; keyframes on frames {u['kf_frames']}; "
-            f"{u['n_kf']} keyframes, {u['n_pt']} points; mapping passes {u['mapping_passes']}, {on_worker} on the "
-            f"worker; keyframes deferred with the mapper busy {u['kf_deferred_mapper_busy']}; worker errors "
-            f"{u['worker_errors']}, worker joined {joined}")
-        log(f"cli: {mode}: ATE (Sim3-aligned) of the track-time poses {ate:.6f} m, of MKFTrajectoryLAFIDA.txt "
-            f"(keyframe-composed, {len(t_est)} lines) {ate_file:.6f} m (gate {CLI_ATE_GATE[mode]} on both)")
-        log(f"cli: {mode}: K1 launches {launches}, by thread {by_thread}, by caller {rec['launches']}, by caller "
-            f"and thread {rec['launches_by_thread']}")
-        log(f"cli: {mode}: ms a frame (FrameMetrics.track_ms, host clock, no synchronised timers) without a "
-            f"keyframe: {frame_ms_text(ms_plain)}; with one: {frame_ms_text(ms_kf)} [{card}]")
+        launches, ate, ate_file = u["launches"], u["ate"], u["ate_file"]
+        log(f"cli: {mode}: gate {CLI_ATE_GATE[mode]} m on both ATEs")
         if sum(rec["launches"].values()) != launches:
             failed.append(f"cli {mode}: K1 launches by caller {rec['launches']} do not add up to {launches}")
-        if rc != 0 or len(working) < SYS_MIN_TRACKED or not max(ate, ate_file) <= CLI_ATE_GATE[mode]:
-            failed.append(f"cli {mode}: exit code {rc}, {len(working)} tracked (gate {SYS_MIN_TRACKED}), ATE {ate} "
-                          f"and {ate_file} from the file (gate {CLI_ATE_GATE[mode]})")
-        if mode == "sync" and (init_frame is None or init_frame > SYS_INIT_BY):
-            failed.append(f"cli sync: initialized on frame {init_frame}, gate {SYS_INIT_BY}")
+        if u["rc"] != 0 or u["tracked"] < SYS_MIN_TRACKED or not max(ate, ate_file) <= CLI_ATE_GATE[mode]:
+            failed.append(f"cli {mode}: exit code {u['rc']}, {u['tracked']} tracked (gate {SYS_MIN_TRACKED}), ATE "
+                          f"{ate} and {ate_file} from the file (gate {CLI_ATE_GATE[mode]})")
+        if mode == "sync" and (u["init_frame"] is None or u["init_frame"] > SYS_INIT_BY):
+            failed.append(f"cli sync: initialized on frame {u['init_frame']}, gate {SYS_INIT_BY}")
         if mode == "async":
-            if on_worker < 1 or slam.worker_errors or not joined or by_thread.get(WORKER, 0) == 0:
-                failed.append(f"cli async: {on_worker} keyframes mapped on the worker, {len(slam.worker_errors)} "
-                              f"worker errors, joined {joined}, K1 by thread {by_thread}")
+            if (u["mapped_on_worker"] < 1 or slam.worker_errors or not u["worker_joined"]
+                    or u["launches_by_thread"].get(WORKER, 0) == 0):
+                failed.append(f"cli async: {u['mapped_on_worker']} keyframes mapped on the worker, "
+                              f"{len(slam.worker_errors)} worker errors, joined {u['worker_joined']}, K1 by thread "
+                              f"{u['launches_by_thread']}")
             f, worker_args = check_worker_fusion(rec, "cli: async")
             failed += f
     return out, failed, worker_args
@@ -1772,17 +1811,223 @@ def phase_async_loop(dev, card, loop):
 
 
 def phase_eval(beside):
-    """C3: the eval processes' results and gates."""
+    """C3 and phase 15's eval: the eval processes' results and gates (the
+    median ATE, and seed 7's frames tracked)."""
     failed = []
     out = {}
     for mode, r in beside["evals"].items():
         res = r["result"]
-        log(f"eval: {mode}: exit code {r['rc']}; {json.dumps(res)}")
-        if r["rc"] != 0 or res is None or not res["value"] < EVAL_GATE or res["frames_tracked"][0] < EVAL_MIN_TRACKED:
+        gate = EVAL_MD_GATE if mode == "mdbrief" else EVAL_GATE
+        log(f"eval: {mode}: exit code {r['rc']}; {json.dumps(res)}; gates median < {gate} m, seed 7 >= "
+            f"{EVAL_MIN_TRACKED} of {EVAL_FRAMES} tracked")
+        if r["rc"] != 0 or res is None or not res["value"] < gate or res["frames_tracked"][0] < EVAL_MIN_TRACKED:
             failed.append(f"eval {mode}: exit code {r['rc']}, result {res}; output: {r['tail']}")
         out[mode] = res
     return out, failed
 
+
+# phase 15, mdBRIEF: the system recipe with mdBRIEF's learned stability masks
+# (extractor.usemdBRIEF: 1, extractor.masks: 1), every matcher on the masked
+# distance at x0.5 thresholds. The JAX package's result on it on the CPU
+# (tests/torch_mdbrief_reference.py) and the gates around it.
+MD_REF = dict(init_frame=3, tracked=57, n_kf=9, n_pt=669, ate=0.017728)
+MD_INIT_SLACK, MD_TRACKED_SLACK, MD_KF_SLACK, MD_PT_SHARE, MD_ATE_FACTOR = 2, 2, 2, 0.2, 2.0
+MD_REPLAY_FRAMES = 12      # the plain-matcher replay's depth (the bootstrap and the first keyframe)
+MD_EXTRACT_FRAME = 20      # the frame the extraction timings take
+# the system's callers of K1, by the function of the system, the mapper or
+# the loop closer that calls it
+K1_CALLERS = {"_try_initialize": "bootstrap", "_track_frame_begin": "tracking", "_track_frame_finish": "tracking",
+              "fuse_neighbors": "fuse", "_relocalize": "relocalization", "_project_loop_points": "loop"}
+
+
+class MaskAudit:
+    """A match_fn that launches K1 and counts its launches by caller (the
+    pipeline function that calls it) and by whether both masks came with
+    them; it keeps the arguments of the last two tracking launches (the
+    last frame's stages 1 and 2)."""
+
+    def __init__(self):
+        import collections
+        import threading
+
+        self.counts = {}
+        self.tracking = collections.deque(maxlen=2)
+        self._lock = threading.Lock()
+
+    def __call__(self, *args, **kw):
+        import torch
+        from multicol_slam_tpu_torch.ops.best_match import masked_best_match_cams
+
+        f, caller = sys._getframe(1), None
+        while f is not None and caller is None:
+            caller = K1_CALLERS.get(f.f_code.co_name)
+            f = f.f_back
+        key = f"{caller}:{'masked' if kw.get('mask_q') is not None and kw.get('mask_t') is not None else 'unmasked'}"
+        with self._lock:
+            self.counts[key] = self.counts.get(key, 0) + 1
+        if caller == "tracking":
+            a = dict(zip(K1_ARGS, args), **kw)
+            self.tracking.append({k: v.clone() if torch.is_tensor(v) else v for k, v in a.items()})
+        return masked_best_match_cams(*args, **kw)
+
+
+def md_settings(settings, learn_masks=1):
+    import dataclasses
+
+    return dataclasses.replace(settings, use_mdbrief=1, learn_masks=learn_masks)
+
+
+def md_extraction(dev, boot, card):
+    """One frame of the room world through the extractor: ORB, dBRIEF
+    (masks off) and mdBRIEF (masks on): shapes, the masks, and ms a frame
+    (CUDA events, 10 frames after a warm-up). Returns the ms by path."""
+    import torch
+    from multicol_slam_tpu_torch.slam.features import ExtractorTables, extract_features
+
+    _, images, rig, settings, tables = boot
+    img = torch.tensor(images[MD_EXTRACT_FRAME], device=dev)
+    feats, ms = {}, {}
+    for name, s in (("ORB", settings), ("dBRIEF", md_settings(settings, 0)), ("mdBRIEF", md_settings(settings))):
+        tab = tables if name == "ORB" else ExtractorTables(s, H, W, device=dev)
+        feats[name] = extract_features(img, rig.cams, s, tab)
+        ms[name] = time_cuda(lambda: extract_features(img, rig.cams, s, tab), 10)
+    f0, f1, fo = feats["dBRIEF"], feats["mdBRIEF"], feats["ORB"]
+    valid = f1.valid
+    stable = float(np.unpackbits(f1.dmask[valid].cpu().numpy()).mean())
+    log(f"mdbrief: extraction of frame {MD_EXTRACT_FRAME} ({C}x{W}x{H}, {settings.n_features} features, "
+        f"{settings.n_levels} levels): {int(valid.sum())} keypoints; ms a frame (CUDA events, 10 frames) ORB "
+        f"{ms['ORB']:.3f}, dBRIEF {ms['dBRIEF']:.3f}, mdBRIEF with masks {ms['mdBRIEF']:.3f}; {100 * stable:.2f} % "
+        f"of the mask bits set [{card}]")
+    failed = []
+    if not (f1.desc.shape == f1.dmask.shape == (C, settings.n_features, B) and f1.dmask.dtype == torch.uint8):
+        failed.append(f"mdbrief extraction: shapes {tuple(f1.desc.shape)} / {tuple(f1.dmask.shape)}")
+    if not (torch.equal(f0.uv, f1.uv) and torch.equal(f0.desc, f1.desc) and bool((f0.dmask == 255).all())):
+        failed.append("mdbrief extraction: dBRIEF and mdBRIEF disagree on keypoints or descriptors, or dBRIEF "
+                      "has masks")
+    if not (bool((f1.dmask[valid] < 255).any()) and stable < 1.0) or torch.equal(fo.desc, f1.desc):
+        failed.append(f"mdbrief extraction: the masks are all 0xFF or the descriptors are ORB's "
+                      f"({100 * stable:.2f} % of mask bits set)")
+    return ms, failed
+
+
+def md_gates(label, u):
+    """The phase's gates around the JAX package's CPU result on the recipe."""
+    ref = MD_REF
+    failed = []
+    if u["init_frame"] is None or u["init_frame"] > ref["init_frame"] + MD_INIT_SLACK:
+        failed.append(f"{label}: initialized on frame {u['init_frame']}, gate {ref['init_frame'] + MD_INIT_SLACK}")
+    if u["tracked"] < ref["tracked"] - MD_TRACKED_SLACK:
+        failed.append(f"{label}: {u['tracked']} tracked, gate {ref['tracked'] - MD_TRACKED_SLACK}")
+    if abs(u["n_kf"] - ref["n_kf"]) > MD_KF_SLACK or abs(u["n_pt"] - ref["n_pt"]) > MD_PT_SHARE * ref["n_pt"]:
+        failed.append(f"{label}: {u['n_kf']} keyframes, {u['n_pt']} points; gates {ref['n_kf']} +- {MD_KF_SLACK}, "
+                      f"{ref['n_pt']} +- {100 * MD_PT_SHARE:.0f} %")
+    if not u["ate"] <= MD_ATE_FACTOR * ref["ate"]:
+        failed.append(f"{label}: ATE {u['ate']} m, gate {MD_ATE_FACTOR * ref['ate']}")
+    return failed
+
+
+def audit_failures(label, audit, launches, need=("tracking", "bootstrap", "fuse")):
+    """Every K1 launch of the run masked, at every caller; each caller in
+    `need` launched; the audit's count equal to the run's launches."""
+    failed = []
+    n = sum(audit.counts.values())
+    unmasked = {k: v for k, v in audit.counts.items() if not k.endswith(":masked")}
+    if n != launches or unmasked or any(audit.counts.get(f"{c}:masked", 0) == 0 for c in need):
+        failed.append(f"{label}: K1 launches by caller and masks {audit.counts} (the run's launches {launches}; "
+                      f"every caller of {list(need)} masked)")
+    return failed
+
+
+def phase_mdbrief(dev, boot, card, dataset):
+    """Phase 15: mdBRIEF at full width. (a) the extraction; (b) the sync
+    system over SYS_FRAMES frames, instrumented as phase 10 (K1 by caller,
+    every launch masked; the last masked tracking launches of stages 1 and
+    2 and the last masked fusion launch captured for phase 8), gated around
+    the JAX package's CPU result, and its plain-matcher replay over
+    MD_REPLAY_FRAMES frames; (c) `cli.main` async over the CLI's dataset with
+    the masks on. Returns (results, failures, captured launches)."""
+    import torch
+    from multicol_slam_tpu_torch.eval import set_yaml_keys
+    from multicol_slam_tpu_torch.io.trajectory import umeyama_align
+    from multicol_slam_tpu_torch.ops.best_match import masked_best_match_cams_plain
+    from multicol_slam_tpu_torch.slam.system import WORKING
+    from multicol_slam_tpu_torch.utils.geometry import cayley_to_hom
+
+    extract_ms, failed = md_extraction(dev, boot, card)
+    world, md = boot[0], md_settings(boot[3])
+    audit = MaskAudit()
+    t0 = time.perf_counter()
+    slam, frames, rec = run_system(dev, boot, audit, instrument_it=True, n_frames=SYS_FRAMES,
+                                   snap_at=MD_REPLAY_FRAMES, extractor=md)
+    wall = time.perf_counter() - t0
+    s = slam.store
+    working = [m for m in frames if m.state == WORKING]
+    pos = lambda p: cayley_to_hom(torch.tensor(np.asarray(p, np.float32))).numpy()[:, :3, 3]  # noqa: E731
+    ate = float("inf")
+    if len(working) >= 3:
+        gt = pos(world.poses[[m.frame_id for m in working]])
+        ate = float(np.sqrt(np.mean(np.sum((umeyama_align(pos(np.stack([m.pose for m in working])), gt) - gt)
+                                           ** 2, -1))))
+    ms_kf = [m.track_ms for m in working if m.is_keyframe]
+    ms_plain = [m.track_ms for m in working if not m.is_keyframe]
+    u = dict(init_frame=working[0].frame_id if working else None, tracked=len(working), n_kf=int(s.kf_valid.sum()),
+             n_pt=int(s.pt_valid.sum()), ate=ate, kf_frames=[m.frame_id for m in frames if m.is_keyframe],
+             loops=slam.loop_closer.n_loops_closed, ms_frame=float(np.median(ms_plain)) if ms_plain else None,
+             ms_keyframe=float(np.median(ms_kf)) if ms_kf else None, wall=wall)
+    stages = {k: [round(x, 3) for x in v] for k, v in rec["ms"].items()}
+    log(f"mdbrief: system, {SYS_FRAMES} frames of {C}x{W}x{H}, masks on, sync, loops on, in {wall:.3f} s: "
+        f"initialized on frame {u['init_frame']}; {u['tracked']} tracked; keyframes on frames {u['kf_frames']}; "
+        f"{u['n_kf']} keyframes, {u['n_pt']} points; ATE (Sim3-aligned, track-time poses) {ate:.6f} m; "
+        f"{u['loops']} loops; the JAX package on the CPU: {json.dumps(MD_REF)}")
+    log(f"mdbrief: system: K1 launches by caller {rec['launches']} (total {rec['total_launches']}), by caller and "
+        f"masks {audit.counts}")
+    log(f"mdbrief: system: median ms a tracked frame {frame_ms_text(ms_plain)}; a keyframe frame "
+        f"{frame_ms_text(ms_kf)} (host clock, the mapping stages synchronised) [{card}]")
+    log(f"mdbrief: system: stage ms {json.dumps(stages)} [{card}]")
+    failed += md_gates("mdbrief system", u)
+    failed += audit_failures("mdbrief system", audit, rec["total_launches"])
+    if len(audit.tracking) != 2 or not rec["fuse_args"] or rec["fuse_args"][-1].get("mask_q") is None:
+        failed.append("mdbrief system: the last masked tracking and fusion launches were not captured")
+    slam_p, frames_p, _ = run_system(dev, boot, masked_best_match_cams_plain, instrument_it=False,
+                                     n_frames=MD_REPLAY_FRAMES, extractor=md)
+    replay = same_run("mdbrief system: plain-matcher replay", rec["snap"], run_record(slam_p, frames_p))
+    failed += replay
+    log(f"mdbrief: system: the plain-matcher replay of the first {MD_REPLAY_FRAMES} frames: "
+        + ("; ".join(replay) if replay else "identical (states, inliers, matches, keyframes per frame; keyframe "
+           "poses bit-identical)"))
+
+    # (c) the CLI, async, the same world on disk with the masks on
+    md_dir = tempfile.mkdtemp(prefix="cli_mdbrief_")
+    settings = os.path.join(md_dir, "Slam_Settings_mdbrief.yaml")
+    shutil.copy(os.path.join(dataset, "Slam_Settings_synthetic.yaml"), settings)
+    set_yaml_keys(settings, {"extractor.usemdBRIEF": 1, "extractor.masks": 1})
+    cli_u, cli_rec, cli_slam = cli_run(world, settings, dataset, "async", "mdbrief: cli async", card)
+    cli_failed = []
+    ate_gate = 2 * MD_ATE_FACTOR * MD_REF["ate"]   # async is not deterministic: twice (b)'s gate
+    if cli_u["tracked"] < MD_REF["tracked"] - MD_TRACKED_SLACK or not max(cli_u["ate"], cli_u["ate_file"]) <= ate_gate:
+        cli_failed.append(f"mdbrief cli async: {cli_u['tracked']} tracked (gate "
+                          f"{MD_REF['tracked'] - MD_TRACKED_SLACK}), ATE {cli_u['ate']} and {cli_u['ate_file']} from the file (gate {ate_gate})")
+    if cli_u["rc"] != 0 or cli_u["mapped_on_worker"] < 1 or cli_slam.worker_errors or not cli_u["worker_joined"]:
+        cli_failed.append(f"mdbrief cli async: exit code {cli_u['rc']}, {cli_u['mapped_on_worker']} keyframes "
+                          f"mapped on the worker, {len(cli_slam.worker_errors)} worker errors")
+    if not cli_slam.use_masks:
+        cli_failed.append("mdbrief cli async: the system does not match masked")
+    f, worker_args = check_worker_fusion(cli_rec, "mdbrief: cli async")
+    cli_failed += f
+    if worker_args is not None and worker_args.get("mask_q") is None:
+        cli_failed.append("mdbrief cli async: the worker's fusion launch carried no masks")
+    failed += cli_failed
+    captured = [("mdBRIEF tracking stage 1", audit.tracking[0] if audit.tracking else None),
+                ("mdBRIEF tracking stage 2", audit.tracking[-1] if audit.tracking else None),
+                ("mdBRIEF system fusion", rec["fuse_args"][-1] if rec["fuse_args"] else None),
+                ("mdBRIEF CLI async fusion, worker stream", worker_args)]
+    # the masked body's cost: the same launches without their masks
+    captured += [(f"{name}, masks dropped", {k: v for k, v in a.items() if k not in ("mask_q", "mask_t")})
+                 for name, a in captured[::2] if a is not None]
+    strip = {k: v for k, v in cli_u.items() if k != "frame_ms"}
+    return (dict(extract_ms=extract_ms, system=u, launches=dict(rec["launches"]), masks_by_caller=dict(audit.counts),
+                 stages=stages, cli_async=strip),
+            failed, [(n, a) for n, a in captured if a is not None])
 
 
 def main(argv=None):
@@ -1830,7 +2075,8 @@ def main(argv=None):
         async_loop, failed, worker_loop = phase_async_loop(dev, card, loop)
         cli_out, failed_cli, worker_cli = phase_cli(dev, boot, card, loop["beside"]["dataset"])
         evals, failed_eval = phase_eval(loop["beside"])
-        failed += failed_cli + failed_eval
+        md, failed_md, md_captured = phase_mdbrief(dev, boot, card, loop["beside"]["dataset"])
+        failed += failed_cli + failed_eval + failed_md
         if loop["beside"]["writer_rc"] != 0:
             failed.append(f"the CLI dataset's writer exited with {loop['beside']['writer_rc']}")
         worker_rows = [(name, a) for name, a in (("CLI async fusion, worker stream", worker_cli),
@@ -1841,7 +2087,7 @@ def main(argv=None):
                                         ("system fusion", system["fuse"]),
                                         ("loop Sim3 check, radius 10", loop["captured"]["loop_sim3_check"]),
                                         ("loop SearchAndFuse, radius 6", loop["captured"]["loop_search_and_fuse"])]
-                                  + worker_rows, card)
+                                  + worker_rows + md_captured, card)
         sweep = phase_split([
             ("K1 tracking stage 1", masked_best_match_cams, masked_best_match_cams_plain, cap_track[0]),
             ("K1 bootstrap forward", masked_best_match_cams, masked_best_match_cams_plain, out["captured"][0]),
@@ -1863,6 +2109,8 @@ def main(argv=None):
     cli_paths = {f"cli_{mode}_{role(th)}": n
                  for mode, u in cli_out.items() for th, n in u["launches_by_thread"].items()}
     cli_paths.update({f"loop_B_async_{role(th)}": n for th, n in async_loop["by_thread"].items()})
+    cli_paths.update({f"mdbrief_cli_async_{role(th)}": n for th, n in md["cli_async"]["launches_by_thread"].items()})
+    cli_paths.update({f"mdbrief_system_{k}": v for k, v in md["launches"].items()})
     log(json.dumps({"kernels": [{
         "name": "masked_best_match_cams",
         "route": "cuda",
@@ -1900,6 +2148,7 @@ def main(argv=None):
         "cli": {m: {k: v for k, v in u.items() if k != "frame_ms"} for m, u in cli_out.items()},
         "async_loop": async_loop,
         "eval": evals,
+        "mdbrief": md,
     }, {
         "name": "masked_best_match",
         "route": "cuda",

@@ -9,19 +9,22 @@ with `io/trajectory.ate_rmse` (Sim3-aligned). Prints ONE JSON line, e.g.
   {"metric": "synthetic_lafida_ate_rmse", "value": 0.0093, "unit": "m", ...}
 
     python3 -m multicol_slam_tpu_torch.eval [--frames N] [--out DIR] [--seed S]
-                                            [--seeds N] [--async] [--real-calib [--calib-dir DIR]]
+                                            [--seeds N] [--async] [--mdbrief]
+                                            [--real-calib [--calib-dir DIR]]
 
 Modes:
   (default)     the synthetic rig, 600 landmarks, 200 features x 2 levels,
                 the `line` trajectory, seed 7; --sync-mapping unless --async
   --seeds N     seeds seed..seed+N-1, the median ATE reported and gated on
+  --mdbrief     mdBRIEF with learned stability masks (extractor.usemdBRIEF: 1,
+                extractor.masks: 1): every matcher on the masked Hamming
+                distance at x0.5 thresholds
   --real-calib  the Lafida calibration YAMLs (754x480) at the reference's
                 400 features x 8 levels; prints a "skipped" line when the
                 calibration directory is absent
 
 The command line runs on the card; `main([...], device="cpu")` runs on the
-CPU. --mdbrief (ROADMAP.md, Queue 1 item 3) and --selfcal (item 4) are not
-ported yet.
+CPU. --selfcal (ROADMAP.md, Queue 1 item 4) is not ported yet.
 """
 from __future__ import annotations
 
@@ -55,6 +58,7 @@ def main(argv=None, device=DEFAULT_DEVICE) -> int:
     use_async = False
     seed = 7
     n_seeds = 1
+    mdbrief = False
     it = iter(argv)
     for a in it:
         if a == "--frames":
@@ -72,8 +76,7 @@ def main(argv=None, device=DEFAULT_DEVICE) -> int:
         elif a == "--seeds":
             n_seeds = int(next(it))
         elif a == "--mdbrief":
-            raise NotImplementedError("--mdbrief: the dBRIEF/mdBRIEF path is not ported yet (ROADMAP.md, "
-                                      "Queue 1 item 3)")
+            mdbrief = True
         elif a == "--selfcal":
             raise NotImplementedError("--selfcal: the self-calibrating BA demo is not ported yet (ROADMAP.md, "
                                       "Queue 1 item 4)")
@@ -88,11 +91,11 @@ def main(argv=None, device=DEFAULT_DEVICE) -> int:
         # the worst over seeds, gated on the median
         vals, tracked = [], []
         for i in range(n_seeds):
-            r = _synthetic(n_frames, f"{out_dir}_s{seed + i}", use_async, seed + i, device)
+            r = _synthetic(n_frames, f"{out_dir}_s{seed + i}", use_async, seed + i, device, mdbrief)
             vals.append(r["value"])
             tracked.append(r["frames_tracked"])
         result = {
-            "metric": "synthetic_lafida_ate_rmse_multiseed",
+            "metric": "synthetic_lafida_ate_rmse_multiseed" + ("_mdbrief" if mdbrief else ""),
             "value": round(float(np.median(vals)), 5),
             "unit": f"m (MEDIAN over {n_seeds} seeds, Sim3-aligned, full pixel pipeline)",
             "max": round(float(np.max(vals)), 5),
@@ -105,7 +108,7 @@ def main(argv=None, device=DEFAULT_DEVICE) -> int:
         }
         print(json.dumps(result))
         return 0 if np.isfinite(result["value"]) else 1
-    r = _synthetic(n_frames, out_dir, use_async, seed, device)
+    r = _synthetic(n_frames, out_dir, use_async, seed, device, mdbrief)
     print(json.dumps(r))
     return 0 if np.isfinite(r["value"]) else 1
 
@@ -125,19 +128,24 @@ def _run_cli(args, out_dir: str, device: torch.device):
     return os.path.join(out_dir, "MKFTrajectoryLAFIDA.txt"), time.perf_counter() - t0
 
 
-def _synthetic(n_frames: int, out_dir: str, use_async: bool, seed: int, device: torch.device) -> dict:
+def _synthetic(n_frames: int, out_dir: str, use_async: bool, seed: int, device: torch.device,
+               mdbrief: bool = False) -> dict:
     """One synthetic-Lafida CLI run (full pixel pipeline) -> result dict.
     The sequential pipeline by default (deterministic); --async measures
-    the CLI's default pipeline instead."""
+    the CLI's default pipeline instead. `mdbrief` switches the extractor to
+    mdBRIEF with learned stability masks."""
     world = make_world(n_points=600, n_frames=n_frames, n_cams=3, n_feats=200, noise_px=0.0,
                        trajectory="line", seed=seed)
     seq_dir = write_dataset(world, out_dir)
+    if mdbrief:
+        set_yaml_keys(os.path.join(seq_dir, "Slam_Settings_synthetic.yaml"),
+                      {"extractor.usemdBRIEF": 1, "extractor.masks": 1})
     traj_path, wall = _run_cli(["no_voc.yml", os.path.join(seq_dir, "Slam_Settings_synthetic.yaml"), seq_dir,
                                 seq_dir] + ([] if use_async else ["--sync-mapping"]), out_dir, device)
     est_t, est_xyz = load_tum_trajectory(traj_path)
     ate = ate_rmse(est_t, est_xyz, world.timestamps, world.poses[:, 3:6])
     return {
-        "metric": "synthetic_lafida_ate_rmse",
+        "metric": "synthetic_lafida_ate_rmse" + ("_mdbrief" if mdbrief else ""),
         "value": round(float(ate), 5),
         "unit": f"m (Sim3-aligned, {len(est_t)}/{n_frames} frames tracked, full pixel pipeline)",
         "frames_tracked": int(len(est_t)),
@@ -146,8 +154,24 @@ def _synthetic(n_frames: int, out_dir: str, use_async: bool, seed: int, device: 
         "wall_s": round(wall, 1),
         "platform": device.type,
         "pipeline": "async" if use_async else "sync",
-        "descriptor": "ORB",
+        "descriptor": "mdBRIEF+masks" if mdbrief else "ORB",
     }
+
+
+def set_yaml_keys(path: str, kv: dict) -> None:
+    """Overwrite the `key: value` lines of an OpenCV-YAML settings file
+    (appending the keys it lacks)."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    done = set()
+    for i, ln in enumerate(lines):
+        for k, v in kv.items():
+            if ln.startswith(k + ":"):
+                lines[i] = f"{k}: {v}"
+                done.add(k)
+    lines += [f"{k}: {v}" for k, v in kv.items() if k not in done]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
 
 
 def _real_calib(n_frames: int, out_dir: str, calib_dir: str, device: torch.device) -> int:

@@ -1,10 +1,18 @@
-"""Steered-BRIEF (ORB) descriptors and intensity-centroid angles (port of the
-ORB path of `multicol_slam_tpu/ops/brief.py`; dBRIEF/mdBRIEF wait).
+"""Binary descriptors: steered BRIEF (ORB), dBRIEF and mdBRIEF, and
+intensity-centroid angles (port of `multicol_slam_tpu/ops/brief.py`).
 
 One [P, P] patch per keypoint (P = 2 * SAMPLE_RADIUS + 1) is gathered once
 and feeds both the IC-angle moments and the descriptor tests. Each sample
 is a direct gather from that patch (the reference's one-hot contraction is
 a TPU device for the same values).
+
+dBRIEF (mdBRIEFextractorOct.cpp:356-407) rotates the pattern in the
+undistorted image plane around the undistorted keypoint, pushes it through
+the omni model at the plane z = -a0, centres it on its mean and rounds.
+mdBRIEF (:410-554) adds a stability mask: a bit is kept where the tests
+under the pattern turned by +-20 degrees agree with the unturned one.
+Every function takes leading batch axes (the rig's cameras); the camera
+parameters carry the same leading axes without the keypoint axis.
 """
 from __future__ import annotations
 
@@ -20,6 +28,9 @@ HALF_PATCH = 15          # IC-angle patch radius
 PATCH_SIZE = 31
 PATTERN_SEED = 20160823  # the reference's pattern seed: descriptors stay bit-compatible
 SAMPLE_RADIUS = 23
+# the mdBRIEF perturbation, the float32 product the reference's
+# jnp.deg2rad(20.0) gives
+MASK_ROTATION = float(np.float32(20.0) * np.float32(np.pi / 180.0))
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,7 +109,67 @@ def _rotated_offsets(pattern: torch.Tensor, angles: torch.Tensor) -> torch.Tenso
 def compute_orb_from_patches(patches, centers, r0, c0, angles, pattern: torch.Tensor) -> torch.Tensor:
     """ORB descriptors [..., K, B] uint8; bit i is t0 < t1 of pair i of the
     rotated `pattern` ([16 B, 2] int32, `brief_pattern(16 B)`)."""
-    offs = _rotated_offsets(pattern, angles)
-    vals = _sample_patches(patches, centers, offs, r0, c0)
-    bits = vals[..., 0::2] < vals[..., 1::2]
-    return _pack_bits(bits)
+    return _pack_bits(_tests(patches, centers, _rotated_offsets(pattern, angles), r0, c0))
+
+
+def undistort_keypoints(pol, cde, pp, a0, uv_level0: torch.Tensor) -> torch.Tensor:
+    """undistortPointsOcam with scale factor a0 (cam_model_omni.h:129-140,
+    scaleF = pol[0], mdBRIEFextractorOct.cpp:1288): unproject to a ray (x, y,
+    z) and return (-x / z, -y / z) * a0. uv [..., K, 2] -> [..., K, 2]; pol,
+    cde, pp [..., D] and a0 [...] without the keypoint axis."""
+    from multicol_slam_tpu_torch.models.camera import img_to_world
+
+    ray = img_to_world(pol[..., None, :], cde[..., None, :], pp[..., None, :], uv_level0)
+    a0 = a0[..., None]
+    return torch.stack([-ray[..., 0] / ray[..., 2] * a0, -ray[..., 1] / ray[..., 2] * a0], dim=-1)
+
+
+def _distorted_offsets(pattern, undist_kp, angles, invpol, cde, pp, a0) -> torch.Tensor:
+    """The dBRIEF pattern (rotateAndDistortPattern, mdBRIEFextractorOct.cpp:
+    250-283): `pattern` [S, 2] rotated by angles [..., K] around the
+    undistorted keypoints [..., K, 2], projected through the omni model at
+    the plane z = -a0, less its mean over the pattern, rounded half to even.
+    Returns [..., K, S, 2] int32."""
+    from multicol_slam_tpu_torch.models.camera import world_to_img
+
+    ca, sa = torch.cos(angles)[..., None], torch.sin(angles)[..., None]
+    x, y = pattern[:, 0].to(torch.float32), pattern[:, 1].to(torch.float32)
+    xr = x * ca - y * sa + undist_kp[..., 0:1]
+    yr = x * sa + y * ca + undist_kp[..., 1:2]
+    plane = torch.stack([xr, yr, (-a0)[..., None, None].expand_as(xr)], dim=-1)
+    uv = world_to_img(invpol[..., None, None, :], cde[..., None, None, :], pp[..., None, None, :], plane)
+    uv = uv - uv.mean(dim=-2, keepdim=True)
+    return torch.round(uv).to(torch.int32)
+
+
+def _tests(patches, centers, offsets, r0, c0) -> torch.Tensor:
+    """The binary tests t0 < t1 of each pattern pair: [..., K, S / 2] bool."""
+    vals = _sample_patches(patches, centers, offsets, r0, c0)
+    return vals[..., 0::2] < vals[..., 1::2]
+
+
+def compute_dbrief_from_patches(patches, centers, r0, c0, undist_kp, angles, invpol, cde, pp, a0,
+                                pattern: torch.Tensor, learn_masks: bool = False):
+    """dBRIEF descriptors and, with learn_masks, the mdBRIEF stability masks:
+    (desc [..., K, B] u8, mask [..., K, B] u8). Without masks every mask is
+    0xFF, so that the masked distance is uniform. `pattern`: [16 B, 2]
+    int32, `brief_pattern(16 B)`."""
+    bits = _tests(patches, centers, _distorted_offsets(pattern, undist_kp, angles, invpol, cde, pp, a0), r0, c0)
+    desc = _pack_bits(bits)
+    if not learn_masks:
+        return desc, torch.full_like(desc, 255)
+    stable = torch.ones_like(bits)
+    for delta in (MASK_ROTATION, -MASK_ROTATION):   # float32 values: the sums round as the reference's
+        offs = _distorted_offsets(pattern, undist_kp, angles + delta, invpol, cde, pp, a0)
+        stable = stable & (_tests(patches, centers, offs, r0, c0) == bits)
+    return desc, _pack_bits(stable)
+
+
+def compute_dbrief(img, centers, undist_kp, angles, invpol, cde, pp, a0, pattern: torch.Tensor,
+                   learn_masks: bool = False):
+    """dBRIEF / mdBRIEF of keypoints `centers` [..., K, 2] on the (blurred)
+    level image img [..., H, W]: `compute_dbrief_from_patches` on patches
+    gathered here."""
+    patches, r0, c0 = gather_sample_patches(img, centers)
+    return compute_dbrief_from_patches(patches, centers, r0, c0, undist_kp, angles, invpol, cde, pp, a0,
+                                       pattern, learn_masks)

@@ -1,10 +1,11 @@
-"""Per-frame multi-camera feature extraction (port of the ORB path of
+"""Per-frame multi-camera feature extraction (port of
 `multicol_slam_tpu/slam/features.py`).
 
 All cameras go through each step together, the camera axis being a tensor
 dimension: pyramid, box blur, dense FAST with 3x3 NMS, grid top-K, IC angles,
-ORB descriptors, unit rays. The output is a fixed-capacity `FrameFeatures`,
-K = n_features slots per camera with a validity mask. `downselect_features`
+descriptors (ORB, or with `use_mdbrief` dBRIEF, and mdBRIEF's stability
+masks with `learn_masks`), unit rays. The output is a fixed-capacity
+`FrameFeatures`, K = n_features slots per camera with a validity mask. `downselect_features`
 reduces a frame of the bootstrap's init bank (2x features at FAST threshold
 5) to the runtime capacity, on the host.
 """
@@ -33,7 +34,8 @@ class FrameFeatures:
 
     uv [C, K, 2] f32 level-0 pixels; response [C, K] f32; octave [C, K] i32;
     angle [C, K] f32 radians; rays [C, K, 3] f32 unit rays; desc [C, K, B] u8;
-    dmask [C, K, B] u8 (0xFF on the ORB path); valid [C, K] bool.
+    dmask [C, K, B] u8 mdBRIEF stability masks (0xFF unless learn_masks);
+    valid [C, K] bool.
     """
 
     uv: torch.Tensor
@@ -48,13 +50,12 @@ class FrameFeatures:
 
 class ExtractorTables(nn.Module):
     """Constant tables of the extractor for one image size, as buffers: the
-    BRIEF pattern, the IC-angle weights and the pyramid's resize matrices."""
+    BRIEF pattern (ORB and dBRIEF share it), the IC-angle weights and the
+    pyramid's resize matrices."""
 
     def __init__(self, settings: ExtractorSettings, height: int, width: int, device=DEFAULT_DEVICE):
         super().__init__()
         device = resolve_device(device)
-        if settings.use_mdbrief:
-            raise NotImplementedError("the dBRIEF/mdBRIEF extraction path is not ported yet")
         self.settings = settings
         self.height, self.width = height, width
         self.register_buffer("pattern", torch.from_numpy(
@@ -89,9 +90,18 @@ def _extract_level(level_img, blurred, cams: OmniCamera, settings: ExtractorSett
     uv_l, resp, ok = fast_ops.select_topk_grid(score, valid, quota)
     patches, r0, c0 = brief_ops.gather_sample_patches(blurred, uv_l)
     ang = brief_ops.ic_angles_from_patches(patches, uv_l, r0, c0, tables.ic_wx, tables.ic_wy)
-    desc = brief_ops.compute_orb_from_patches(patches, uv_l, r0, c0, ang, tables.pattern)
-    dmask = torch.full_like(desc, 255)
     uv0 = uv_l.to(torch.float32) * (settings.scale_factor ** level)
+    if settings.use_mdbrief:
+        # the pattern turns around the keypoint undistorted at level-0 pixels
+        # with each camera's scale factor a0 = pol[0]
+        a0 = cams.pol[:, 0]
+        undist = brief_ops.undistort_keypoints(cams.pol, cams.cde, cams.pp, a0, uv0)
+        desc, dmask = brief_ops.compute_dbrief_from_patches(
+            patches, uv_l, r0, c0, undist, ang, cams.invpol, cams.cde, cams.pp, a0, tables.pattern,
+            bool(settings.learn_masks))
+    else:
+        desc = brief_ops.compute_orb_from_patches(patches, uv_l, r0, c0, ang, tables.pattern)
+        dmask = torch.full_like(desc, 255)
     octave = torch.full(resp.shape, level, dtype=torch.int32, device=resp.device)
     return uv0, resp, octave, ang, desc, dmask, ok
 

@@ -35,7 +35,7 @@ import torch
 from multicol_slam_tpu_torch import native
 from multicol_slam_tpu_torch.models.rig import MultiCamRig
 from multicol_slam_tpu_torch.ops.best_match import masked_best_match_cams
-from multicol_slam_tpu_torch.ops.matching import hamming_matrix, rotation_consistency
+from multicol_slam_tpu_torch.ops.matching import hamming_matrix, hamming_matrix_masked, rotation_consistency
 from multicol_slam_tpu_torch.optim.ba import bundle_adjust_interruptible, prune_observations
 from multicol_slam_tpu_torch.optim.problem import BAParams, FreeMask, Observations, intr_project
 from multicol_slam_tpu_torch.slam.features import FrameFeatures
@@ -76,15 +76,17 @@ def triangulate_pairs(
     th_desc: float = 64.0,
     ratio: float = 0.8,
     ang1=None, ang2s=None,         # keypoint angles (the rotation histogram)
+    dmask1=None, dmask2s=None,     # mdBRIEF stability masks [C, K, B], [J, C, K, B]
     check_rotation: bool = False,
+    use_masks: bool = False,
 ) -> TriangulationOut:
     """Match unassigned same-camera features between keyframe 1 and each of
     J neighbours under the epipolar constraint and triangulate
     (SearchForTriangulationRaw, cORBmatcher.cpp:988-1090, and the
     CreateNewMapPoints gates, cLocalMapping.cpp:224-387), all pairs and
     cameras at once. check_rotation applies the rotHist filter (:1070-1090)
-    per pair. The Hamming matrix is the dense +-1 product
-    (`hamming_matrix`)."""
+    per pair. The Hamming matrix is the dense +-1 product (`hamming_matrix`),
+    or with use_masks the mdBRIEF masked distance (pass a x0.5 th_desc)."""
     J = poses2.shape[0]
     C, K, _ = desc1.shape
     Mc = cayley_to_hom(mc6)                                           # [C, 4, 4]
@@ -93,7 +95,10 @@ def triangulate_pairs(
     # per camera: cam1 <- cam2, and E of its inverse
     rel = torch.matmul(hom_inverse(MtMc1), MtMc2)
     E = essential_from_relative(hom_inverse(rel))                     # [J, C, 3, 3]
-    ham = hamming_matrix(desc1, desc2s)                               # [J, C, K1, K2]
+    if use_masks and dmask1 is not None:
+        ham = hamming_matrix_masked(desc1, dmask1, desc2s, dmask2s)   # [J, C, K1, K2]
+    else:
+        ham = hamming_matrix(desc1, desc2s)
     epi = ray_epipolar_distance(rays1[None, :, :, None, :], E[:, :, None, None],
                                 rays2s[:, :, None, :, :])
     mask = (epi < epi_th) & free1[None, :, :, None] & free2s[:, :, None, :]
@@ -138,22 +143,25 @@ def triangulate_pairs(
 
 def triangulate_pair(mc6, pose1, pose2, uv1, rays1, desc1, free1, uv2, rays2, desc2, free2, intr,
                      epi_th: float = 1e-2, th_desc: float = 64.0, ratio: float = 0.8,
-                     ang1=None, ang2=None, check_rotation: bool = False) -> TriangulationOut:
+                     ang1=None, ang2=None, dmask1=None, dmask2=None, check_rotation: bool = False,
+                     use_masks: bool = False) -> TriangulationOut:
     """`triangulate_pairs` for one neighbour: outputs without the J axis."""
     out = triangulate_pairs(mc6, pose1, pose2[None], uv1, rays1, desc1, free1, uv2[None], rays2[None],
                             desc2[None], free2[None], intr, epi_th, th_desc, ratio, ang1,
-                            None if ang2 is None else ang2[None], check_rotation)
+                            None if ang2 is None else ang2[None], dmask1,
+                            None if dmask2 is None else dmask2[None], check_rotation, use_masks)
     return TriangulationOut(out.X[0], out.feat1, out.feat2[0], out.ok[0], out.packed[0])
 
 
 def fuse_match(mc6, intr, cams, feats: FrameFeatures, pose, pts: LocalPoints, radius: float = 3.0,
-               match_fn: Callable = masked_best_match_cams):
+               use_masks: bool = False, match_fn: Callable = masked_best_match_cams):
     """Project `pts` into every camera of the (tiled) rig and match with the
-    best-match kernel at TH_LOW. Returns (assign, dist, keep, packed [3,
-    C*K] f32: the three stacked for one readback)."""
-    th = 2.0 * pts.desc.shape[-1]   # TH_LOW
+    best-match kernel at TH_LOW (x0.5 with the mdBRIEF masks,
+    cORBmatcher.cpp:46-65). Returns (assign, dist, keep, packed [3, C*K]
+    f32: the three stacked for one readback)."""
+    th = (1.0 if use_masks else 2.0) * pts.desc.shape[-1]   # TH_LOW
     assign, dist, keep = project_and_match(mc6, intr, cams, feats, pose, pts, radius=radius, th_desc=th,
-                                           match_fn=match_fn)
+                                           use_masks=use_masks, match_fn=match_fn)
     packed = torch.stack([assign.to(torch.float32), dist, keep.to(torch.float32)])
     return assign, dist, keep, packed
 
@@ -171,17 +179,20 @@ class _NullLock:
 class LocalMapper:
     """Host orchestration of the local-mapping pipeline over a MapStore.
     `match_fn` is the best-match kernel's wrapper (or its plain version)
-    that fusion matches with. `lock` (the system's map lock in async mode)
-    is held for store bookkeeping and commits only; `yield_gate`, when set,
-    is called before each device launch."""
+    that fusion matches with; `use_masks` turns on the mdBRIEF masked
+    distance at x0.5 thresholds in triangulation and fusion. `lock` (the
+    system's map lock in async mode) is held for store bookkeeping and
+    commits only; `yield_gate`, when set, is called before each device
+    launch."""
 
     # a forced (non-interruptible) local BA at least every N keyframes under
     # sustained queue pressure (see run)
     MAX_BA_DEFERRALS = 3
 
     def __init__(self, store: MapStore, rig: MultiCamRig, match_fn: Callable = masked_best_match_cams,
-                 lock=None):
+                 lock=None, use_masks: bool = False):
         self.store = store
+        self.use_masks = use_masks
         self.rig = rig
         self.device = rig.Mc.device
         self.mc6 = rig.Mc_cayley.to(torch.float32)
@@ -239,7 +250,7 @@ class LocalMapper:
         the lock, skipping a feature claimed meanwhile."""
         s = self.store
         C, K = s.cfg.n_cams, s.cfg.feats_per_cam
-        th = 2.0 * s.cfg.desc_bytes   # TH_LOW
+        th = (1.0 if self.use_masks else 2.0) * s.cfg.desc_bytes   # TH_LOW
         with self.lock:
             if not s.kf_valid[k]:
                 return 0
@@ -259,9 +270,10 @@ class LocalMapper:
             snap = dict(free1=free[0].reshape(C, K), free2=free[1:].reshape(-1, C, K),
                         uv1=s.kf_uv[k].reshape(C, K, 2).copy(), rays1=s.kf_rays[k].reshape(C, K, 3).copy(),
                         desc1=s.kf_desc[k].reshape(C, K, -1).copy(), ang1=s.kf_angle[k].reshape(C, K).copy(),
+                        dmask1=s.kf_dmask[k].reshape(C, K, -1).copy(),
                         poses2=s.kf_pose[js], uv2=s.kf_uv[js].reshape(-1, C, K, 2),
                         rays2=s.kf_rays[js].reshape(-1, C, K, 3), desc2=s.kf_desc[js].reshape(len(js), C, K, -1),
-                        ang2=s.kf_angle[js].reshape(-1, C, K))
+                        ang2=s.kf_angle[js].reshape(-1, C, K), dmask2=s.kf_dmask[js].reshape(len(js), C, K, -1))
         chunk = 2 if self.yield_gate is not None else len(pairs)
 
         def launch(sl):
@@ -271,7 +283,9 @@ class LocalMapper:
                 self._t(snap["uv1"]), self._t(snap["rays1"]), self._t(snap["desc1"]), self._t(snap["free1"]),
                 self._t(snap["uv2"][sl]), self._t(snap["rays2"][sl]), self._t(snap["desc2"][sl]),
                 self._t(snap["free2"][sl]), self.intr, th_desc=th,
-                ang1=self._t(snap["ang1"]), ang2s=self._t(snap["ang2"][sl]), check_rotation=True,
+                ang1=self._t(snap["ang1"]), ang2s=self._t(snap["ang2"][sl]),
+                dmask1=self._t(snap["dmask1"]), dmask2s=self._t(snap["dmask2"][sl]), check_rotation=True,
+                use_masks=self.use_masks,
             ).packed
         outs = [launch(slice(i0, i0 + chunk)) for i0 in range(0, len(pairs), chunk)]
         packed = np.concatenate([o.cpu().numpy() for o in outs])          # [J, CK, 5]
@@ -336,7 +350,7 @@ class LocalMapper:
                 return 0
             J = len(tj)
             lp_np = dict(X=s.pt_X[pts], desc=s.pt_desc[pts], min_dist=s.pt_min_dist[pts],
-                         max_dist=s.pt_max_dist[pts], normal=s.pt_normal[pts])
+                         max_dist=s.pt_max_dist[pts], normal=s.pt_normal[pts], dmask=s.pt_dmask[pts])
             t_np = dict(pose=s.kf_pose[tj], uv=s.kf_uv[tj].reshape(J * C, K, 2),
                         octave=s.kf_octave[tj].reshape(J * C, K), angle=s.kf_angle[tj].reshape(J * C, K),
                         rays=s.kf_rays[tj].reshape(J * C, K, 3), desc=s.kf_desc[tj].reshape(J * C, K, -1),
@@ -344,7 +358,7 @@ class LocalMapper:
         lp = LocalPoints(X=self._t(lp_np["X"]), desc=self._t(lp_np["desc"]), min_dist=self._t(lp_np["min_dist"]),
                          max_dist=self._t(lp_np["max_dist"]),
                          valid=torch.ones(len(pts), dtype=torch.bool, device=self.device),
-                         normal=self._t(lp_np["normal"]))
+                         normal=self._t(lp_np["normal"]), dmask=self._t(lp_np["dmask"]))
         Mc = self.rig.Mc.cpu().numpy().astype(np.float64)
         mc_eff = hom_to_cayley_np(cayley_to_hom_np(t_np["pose"])[:, None] @ Mc[None]).reshape(J * C, 6)
         group = 6 if self.yield_gate is not None else J
@@ -360,7 +374,7 @@ class LocalMapper:
             self._yield()
             return fuse_match(self._t(mc_eff[rows]), self.intr.repeat(n, 1), self.rig.cams.tile(n), feats,
                               torch.zeros(6, dtype=torch.float32, device=self.device), lp, radius,
-                              match_fn=self.match_fn)[3]
+                              use_masks=self.use_masks, match_fn=self.match_fn)[3]
         outs = [launch(g0) for g0 in range(0, J, group)]
         packed = np.concatenate([o.cpu().numpy() for o in outs], axis=1)   # [3, J*C*K]
         assign_all = packed[0].astype(np.int64).reshape(J, C * K)

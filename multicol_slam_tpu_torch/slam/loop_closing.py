@@ -10,13 +10,16 @@ The cLoopClosing thread (cLoopClosing.cpp:63-668):
                  minimum score from the covisible keyframes, consistency
                  groups chained to 3 (:115-259)
   ComputeSim3  : mutual descriptor matches between map-pointed features
-                 (>= 15) -> Horn Sim3 RANSAC in the body frames, scored by
-                 reprojection through each observation's camera
+                 (>= 15; the mdBRIEF masked distance at a x0.5 threshold
+                 with `use_masks`) -> Horn Sim3 RANSAC in the body frames,
+                 scored by reprojection through each observation's camera
                  (ops/ransac.py) -> optimize_sim3 (>= 20 inliers) -> the loop
                  neighbourhood's points projected into the current keyframe
                  from the corrected pose by the best-match kernel K1
                  (SearchByProjection(Scw), cORBmatcher.cpp:2270-2440), >= 20
-                 matches in all (:444)
+                 matches in all (:444). As in the reference, this search
+                 and SearchAndFuse match without the masks, at the unmasked
+                 TH_LOW, even with `use_masks`
   CorrectLoop  : snapshot every pose; propagate the corrected Sim3 through
                  the current keyframe's covisible group and re-map their
                  points (once each); the loop points replace the current
@@ -52,7 +55,7 @@ from multicol_slam_tpu_torch.models.vocab import (
     KeyFrameDatabase, Vocabulary, bow_score, bow_vector, build_vocabulary, transform_words,
 )
 from multicol_slam_tpu_torch.ops.best_match import masked_best_match_cams
-from multicol_slam_tpu_torch.ops.matching import hamming_matrix
+from multicol_slam_tpu_torch.ops.matching import hamming_matrix, hamming_matrix_masked
 from multicol_slam_tpu_torch.ops.ransac import ransac_sim3
 from multicol_slam_tpu_torch.optim.ba import (
     Sim3Edges, Sim3Obs, _project_body, optimize_essential_graph, optimize_sim3,
@@ -96,12 +99,15 @@ class LoopCloser:
     that the Sim3 check and SearchAndFuse project with. `sim3_sampler(
     kf_frame_id, n) -> [300, 3]` gives the Sim3 RANSAC's hypotheses (default:
     drawn from `generator`). `lock`: the system's map lock in async mode;
-    `yield_gate`, when set, is called before each device phase."""
+    `yield_gate`, when set, is called before each device phase.
+    `use_masks`: the Sim3 candidate matches take the mdBRIEF masked
+    distance."""
 
     def __init__(self, store: MapStore, rig: MultiCamRig, voc: Optional[Vocabulary] = None,
                  match_fn: Callable = masked_best_match_cams, sim3_sampler: Optional[Callable] = None,
-                 generator: Optional[torch.Generator] = None, lock=None):
+                 generator: Optional[torch.Generator] = None, lock=None, use_masks: bool = False):
         self.store = store
+        self.use_masks = use_masks
         self.lock = lock if lock is not None else _NullLock()
         self.yield_gate: Optional[Callable[[], None]] = None
         # True while CorrectLoop runs: the tracker inserts no keyframe
@@ -255,12 +261,25 @@ class LoopCloser:
         pts = np.unique(pts[pts >= 0])
         return pts[s.pt_valid[pts]] if len(pts) else pts
 
+    def _candidate_distances(self, k: int, cand: int, fk: np.ndarray, fc: np.ndarray):
+        """The Hamming matrix [len(fk), len(fc)] between the two keyframes'
+        features fk and fc (host numpy) and its threshold: TH_LOW, or the
+        masked distance at TH_LOW x0.5 with `use_masks`."""
+        s = self.store
+        if self.use_masks:
+            d = hamming_matrix_masked(self._t(s.kf_desc[k][fk]), self._t(s.kf_dmask[k][fk]),
+                                      self._t(s.kf_desc[cand][fc]), self._t(s.kf_dmask[cand][fc]))
+            return d.cpu().numpy(), 1.0 * s.cfg.desc_bytes
+        d = hamming_matrix(self._t(s.kf_desc[k][fk]), self._t(s.kf_desc[cand][fc]))
+        return d.cpu().numpy(), 2.0 * s.cfg.desc_bytes
+
     def _project_loop_points(self, k: int, pose6_corr: np.ndarray, pts: np.ndarray,
                              radius: float = 10.0, th_desc: float = 64.0) -> np.ndarray:
         """SearchByProjection(Scw) (cORBmatcher.cpp:2270-2440): the points
         `pts` projected into keyframe k's features from pose `pose6_corr`
-        and matched by K1 (fuse_match). Returns assign [F]: index into pts,
-        or -1."""
+        and matched by K1 (fuse_match) without the mdBRIEF masks, whatever
+        `use_masks` says (the reference's). Returns assign [F]: index into
+        pts, or -1."""
         s = self.store
         C, K = s.cfg.n_cams, s.cfg.feats_per_cam
         lp = LocalPoints(X=self._t(s.pt_X[pts]), desc=self._t(s.pt_desc[pts]), min_dist=self._t(s.pt_min_dist[pts]),
@@ -294,10 +313,10 @@ class LoopCloser:
         fc = np.nonzero(s.kf_point[cand] >= 0)[0]
         if len(fk) < MIN_BOW_MATCHES or len(fc) < MIN_BOW_MATCHES:
             return False
-        d = hamming_matrix(self._t(s.kf_desc[k][fk]), self._t(s.kf_desc[cand][fc])).cpu().numpy()
+        d, th = self._candidate_distances(k, cand, fk, fc)
         best = d.argmin(1)
         mutual = d.argmin(0)[best] == np.arange(len(fk))
-        okm = mutual & (d.min(1) <= 2.0 * s.cfg.desc_bytes)
+        okm = mutual & (d.min(1) <= th)
         if okm.sum() < MIN_BOW_MATCHES:
             return False
         fk_m, fc_m = fk[okm], fc[best[okm]]

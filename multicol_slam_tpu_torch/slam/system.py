@@ -24,8 +24,10 @@ generator of its own. Its exceptions are printed and kept in
 States: NO_IMAGES_YET -> NOT_INITIALIZED -> INITIALIZING -> WORKING <-> LOST
 (cTracking.h:79-87).
 
-Not ported yet, and raising NotImplementedError when asked for: mdBRIEF
-mask matching.
+With mdBRIEF's learned masks (`extractor.use_mdbrief` and `learn_masks`)
+every matcher takes the masked Hamming distance at x0.5 thresholds: both
+tracking stages, the bootstrap's window match, triangulation and fusion,
+relocalization and the loop's Sim3 candidates (`use_masks`).
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ from multicol_slam_tpu_torch.models.rig import MultiCamRig
 from multicol_slam_tpu_torch.models.vocab import bow_vector, transform_words
 from multicol_slam_tpu_torch.ops.best_match import masked_best_match_cams
 from multicol_slam_tpu_torch.ops.fast import level_quota
-from multicol_slam_tpu_torch.ops.matching import hamming_matrix
+from multicol_slam_tpu_torch.ops.matching import hamming_matrix, hamming_matrix_masked
 from multicol_slam_tpu_torch.ops.ransac import ransac_noncentral_pose, refine_noncentral_pose, sample_weighted
 from multicol_slam_tpu_torch.optim.ba import bundle_adjust
 from multicol_slam_tpu_torch.slam.features import (
@@ -144,9 +146,6 @@ class MultiColSLAM:
         match_fn: Callable = masked_best_match_cams,
         sim3_sampler: Optional[Callable] = None,
     ):
-        if settings.extractor.use_mdbrief and settings.extractor.learn_masks:
-            raise NotImplementedError("mdBRIEF mask matching is not ported yet (it comes with the "
-                                      "dBRIEF/mdBRIEF extraction path, ROADMAP.md)")
         self.device = resolve_device(device)
         if rig.Mc.device.type != self.device.type:
             raise ValueError(f"the rig lies on {rig.Mc.device}, the system runs on {self.device}")
@@ -156,8 +155,12 @@ class MultiColSLAM:
         self.map_cfg = map_cfg or MapConfig(n_cams=rig.n_cams, feats_per_cam=ex.n_features,
                                             n_levels=ex.n_levels, scale_factor=ex.scale_factor,
                                             desc_bytes=ex.desc_size)
-        self.th_track = 3.0 * self.map_cfg.desc_bytes   # TH_HIGH
-        self.th_low = 2.0 * self.map_cfg.desc_bytes     # TH_LOW
+        # mdBRIEF stability masks: every matcher takes the masked distance,
+        # at half the thresholds
+        self.use_masks = bool(ex.use_mdbrief and ex.learn_masks)
+        th_scale = 0.5 if self.use_masks else 1.0
+        self.th_track = 3.0 * self.map_cfg.desc_bytes * th_scale   # TH_HIGH
+        self.th_low = 2.0 * self.map_cfg.desc_bytes * th_scale     # TH_LOW
         self.match_fn = match_fn
         self.init_sampler = init_sampler
         self.reloc_sampler = reloc_sampler
@@ -167,7 +170,7 @@ class MultiColSLAM:
         self.async_mapping = async_mapping
         self.map_lock = threading.Lock() if async_mapping else _NullLock()
         self.store = MapStore(self.map_cfg)
-        self.mapper = LocalMapper(self.store, rig, match_fn=match_fn, lock=self.map_lock)
+        self.mapper = LocalMapper(self.store, rig, match_fn=match_fn, lock=self.map_lock, use_masks=self.use_masks)
         self.loop_closer: Optional[LoopCloser] = self._new_loop_closer() if use_loop_closing else None
         self.mc6 = rig.Mc_cayley.to(torch.float32)
         self.intr = rig.cams.to_vector()
@@ -217,7 +220,7 @@ class MultiColSLAM:
         # a thread, so no draw depends on the threads' timing
         gen = torch.Generator(device=self.device).manual_seed(self.seed) if self.async_mapping else self.generator
         return LoopCloser(self.store, self.rig, voc=voc, match_fn=self.match_fn, sim3_sampler=self.sim3_sampler,
-                          generator=gen, lock=self.map_lock)
+                          generator=gen, lock=self.map_lock, use_masks=self.use_masks)
 
     def _wire_worker(self):
         """Async mode: the tracker-priority gate on the mapper and the loop
@@ -360,12 +363,18 @@ class MultiColSLAM:
 
     # ------------------------------------------------------------------
     def _try_initialize(self, feats: FrameFeatures, timestamp: float):
+        if feats.valid.shape[1] != self.ref_feats.valid.shape[1]:
+            # the reference frame was extracted with the runtime bank before a
+            # reset (a prefetched frame): this frame of the init bank replaces
+            # it (the reference's bootstrap fails on the two shapes)
+            self.ref_feats = feats
+            return
         sampler = None
         if self.init_sampler is not None:
             fid = self.frame_id
             sampler = lambda cam, n: self.init_sampler(fid, cam, n)  # noqa: E731
         res, n_matches = bootstrap(self.rig, self.ref_feats, feats, sampler=sampler,
-                                   generator=self.generator, match_fn=self.match_fn)
+                                   generator=self.generator, use_masks=self.use_masks, match_fn=self.match_fn)
         if res is None:
             # baseline too small: KEEP the reference so parallax accumulates;
             # re-snapshot only when the overlap collapses
@@ -438,13 +447,14 @@ class MultiColSLAM:
         pt_ids = pt_ids[:n]
         with self.map_lock:
             host = (s.pt_X[pt_ids], s.pt_desc[pt_ids], s.pt_min_dist[pt_ids], s.pt_max_dist[pt_ids],
-                    s.pt_normal[pt_ids])
+                    s.pt_normal[pt_ids], s.pt_dmask[pt_ids] if self.use_masks else None)
 
         def put(a):
-            return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
-        X, desc, min_dist, max_dist, normal = (put(a) for a in host)
+            return None if a is None else torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+        X, desc, min_dist, max_dist, normal, dmask = (put(a) for a in host)
         return LocalPoints(X=X, desc=desc, min_dist=min_dist, max_dist=max_dist,
-                           valid=torch.ones(n, dtype=torch.bool, device=self.device), normal=normal), pt_ids
+                           valid=torch.ones(n, dtype=torch.bool, device=self.device), normal=normal,
+                           dmask=dmask), pt_ids
 
     def _track_frame_begin(self, h: _FrameHandle):
         """Host prep and dispatch of the fused two-stage tracking program
@@ -477,7 +487,8 @@ class MultiColSLAM:
             self.mc6, self.intr, self.rig.cams, h.feats,
             torch.as_tensor(pose_pred, dtype=torch.float32, device=self.device), lp2, lp2,
             scale_factor=ex.scale_factor, n_levels=ex.n_levels, radius1=15.0, radius2=4.0,
-            th_desc=self.th_track, min_pose_inliers=MIN_POSE_INLIERS, match_fn=self.match_fn)
+            th_desc=self.th_track, min_pose_inliers=MIN_POSE_INLIERS, use_masks=self.use_masks,
+            match_fn=self.match_fn)
         h.lp2, h.pt_ids2 = lp2, pt_ids2
 
     def _track_frame_finish(self, h: _FrameHandle):
@@ -496,7 +507,8 @@ class MultiColSLAM:
                     self.mc6, self.intr, self.rig.cams, feats,
                     torch.as_tensor(self.last_pose, dtype=torch.float32, device=self.device), h.lp2, h.lp2,
                     scale_factor=ex.scale_factor, n_levels=ex.n_levels, radius1=60.0, radius2=40.0,
-                    th_desc=self.th_track, min_pose_inliers=MIN_POSE_INLIERS, match_fn=self.match_fn)
+                    th_desc=self.th_track, min_pose_inliers=MIN_POSE_INLIERS, use_masks=self.use_masks,
+                    match_fn=self.match_fn)
                 _, _, pose_f2, n_match2, n_inl, assign, inl = unpack_fused(packed.cpu().numpy())
             ok = n_inl >= MIN_TRACK_INLIERS
         if ok:
@@ -677,11 +689,16 @@ class MultiColSLAM:
             with self.map_lock:
                 fk = np.nonzero(s.kf_point[cand] >= 0)[0]
                 cdesc_np = s.kf_desc[cand][fk]
+                cmask_np = s.kf_dmask[cand][fk]
                 cand_pts_row = s.kf_point[cand].copy()
             if len(fk) < 15:
                 continue
             cdesc = torch.as_tensor(cdesc_np, device=self.device)
-            d = hamming_matrix(cur_desc, cdesc).cpu().numpy()
+            if self.use_masks:
+                d = hamming_matrix_masked(cur_desc, feats.dmask.reshape(C * K, B), cdesc,
+                                          torch.as_tensor(cmask_np, device=self.device)).cpu().numpy()
+            else:
+                d = hamming_matrix(cur_desc, cdesc).cpu().numpy()
             d[~cur_valid] = 1e9
             best = d.argmin(1)
             ok = d.min(1) <= self.th_low
@@ -712,7 +729,7 @@ class MultiColSLAM:
             lp2, pt_ids2 = self._gather_points(local_pts, STAGE2_CAP)
             out = track_stage(self.mc6, self.intr, self.rig.cams, feats, pose, lp2,
                               scale_factor=ex.scale_factor, n_levels=ex.n_levels, radius=8.0,
-                              th_desc=self.th_track, match_fn=self.match_fn)
+                              th_desc=self.th_track, use_masks=self.use_masks, match_fn=self.match_fn)
             packed = out.packed.cpu().numpy()
             ck = C * K
             n_ok = int(packed[7])
@@ -757,7 +774,8 @@ class MultiColSLAM:
         queue drains first; frames in flight across the reset are dropped."""
         self.wait_mapping_idle()
         self.store = MapStore(self.map_cfg)
-        self.mapper = LocalMapper(self.store, self.rig, match_fn=self.match_fn, lock=self.map_lock)
+        self.mapper = LocalMapper(self.store, self.rig, match_fn=self.match_fn, lock=self.map_lock,
+                                  use_masks=self.use_masks)
         if self.loop_closer is not None:
             # the vocabulary stays (the reference reloads the same file); the
             # inverted file starts again on the empty map

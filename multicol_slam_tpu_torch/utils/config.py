@@ -111,7 +111,7 @@ def load_opencv_yaml(path: str) -> Dict:
 class ExtractorSettings:
     """Feature-extractor knobs (Slam_Settings_*.yaml `extractor.*` block)."""
 
-    use_mdbrief: int = 0        # 0 -> ORB, 1 -> dBRIEF/mdBRIEF path (not ported)
+    use_mdbrief: int = 0        # 0 -> ORB, 1 -> dBRIEF/mdBRIEF path
     learn_masks: int = 0        # mdBRIEF online stability masks
     use_agast: int = 0
     fast_agast_type: int = 2

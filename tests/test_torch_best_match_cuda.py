@@ -39,6 +39,10 @@ CASES = {
     "fuse_C12_L1024": (12, 400, 1024, 32, True, False, False, 0.8),
     "fuse_C96_L64": (96, 400, 64, 32, True, False, False, 0.8),
     "fuse_C96_L1024": (96, 400, 1024, 32, True, False, False, 0.8),
+    # the same with mdBRIEF's masks (the system's masked fusion: the points'
+    # masks shared like their descriptors), and with per-camera targets
+    "fuse_C24_L400_masked": (24, 400, 400, 32, True, True, False, 0.8),
+    "fuse_C24_L400_masked_per_camera": (24, 400, 400, 32, False, True, False, 0.8),
 }
 
 

@@ -6,8 +6,10 @@ features, 2 levels, the `line` trajectory, seed 7) written by the port's
 Gates (tests/test_eval_accuracy.py's, the reference's): >= 15 of 25 frames
 tracked and the ATE of MKFTrajectoryLAFIDA.txt under 0.2 m, with
 --sync-mapping and with the async default; the async worker without
-errors and joined after shutdown. Then the usage return, the flags that are
-not ported yet, and the eval entry's JSON line.
+errors and joined after shutdown; under 0.25 m with mdBRIEF's learned
+masks (the settings' extractor.usemdBRIEF and extractor.masks, and the
+eval entry's --mdbrief). Then the usage return, the flags that are not
+ported yet, and the eval entry's JSON line.
 """
 import inspect
 import json
@@ -108,16 +110,24 @@ def test_unported_flags_raise(flag):
         cli.main(["a", "b", "c", "d", flag, "x"], device="cpu")
 
 
-def test_mdbrief_masks_raise(dataset, tmp_path):
-    """Settings that turn on mdBRIEF masks raise, as the system does (Queue 1
-    item 3)."""
+def test_mdbrief_masks_raise(dataset, tmp_path, monkeypatch):
+    """Settings that turn on mdBRIEF with learned masks run the CLI (sync):
+    the system matches masked, and the trajectory file it writes holds the
+    reference's gates (>= 15 of 25 tracked, ATE < 0.25 m,
+    tests/test_eval_accuracy.py:49-61)."""
     _, d = dataset
     text = open(os.path.join(d, "Slam_Settings_synthetic.yaml")).read()
     settings = tmp_path / "s.yaml"
     settings.write_text(text.replace("extractor.usemdBRIEF: 0", "extractor.usemdBRIEF: 1")
                         .replace("extractor.masks: 0", "extractor.masks: 1"))
-    with pytest.raises(NotImplementedError, match="mdBRIEF"):
-        cli.main(["no_voc.yml", str(settings), d, d, "--sync-mapping"], device="cpu")
+    monkeypatch.chdir(tmp_path)
+    made = []
+    orig = cli.MultiColSLAM
+    monkeypatch.setattr(cli, "MultiColSLAM", lambda *a, **kw: made.append(orig(*a, **kw)) or made[-1])
+    assert cli.main(["no_voc.yml", str(settings), d, d, "--sync-mapping"], device="cpu") == 0
+    assert made[0].use_masks and made[0].th_low == 32.0
+    n, ate = _ate(dataset[0], tmp_path / "MKFTrajectoryLAFIDA.txt")
+    assert n >= 15 and ate < 0.25, (n, ate)
 
 
 @pytest.mark.parametrize("fn", [cli.main, teval.main], ids=["cli", "eval"])
@@ -137,9 +147,18 @@ def test_eval_entry(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--mdbrief", "--selfcal"])
-def test_eval_unported_modes_raise(flag):
-    with pytest.raises(NotImplementedError, match="Queue 1 item"):
-        teval.main([flag], device="cpu")
+def test_eval_unported_modes_raise(flag, tmp_path, capsys):
+    """--selfcal is not ported yet and raises; --mdbrief runs the eval
+    recipe with mdBRIEF's learned masks at the reference's gates: >= 15 of
+    25 frames tracked, ATE < 0.25 m (tests/test_eval_accuracy.py:49-61)."""
+    if flag == "--selfcal":
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+            teval.main([flag], device="cpu")
+        return
+    assert teval.main([flag, "--frames", str(N_FRAMES), "--out", str(tmp_path / "ev")], device="cpu") == 0
+    r = json.loads([ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")][-1])
+    assert r["metric"] == "synthetic_lafida_ate_rmse_mdbrief" and r["descriptor"] == "mdBRIEF+masks"
+    assert r["frames_tracked"] >= 15 and r["value"] < 0.25, r
 
 
 def test_eval_real_calib_skips_without_the_files(tmp_path, capsys):

@@ -178,13 +178,43 @@ def test_blackout_and_relocalization(world, jax_run, port_run):
         np.testing.assert_allclose(ts.last_pose[:3], js.last_pose[:3], rtol=0, atol=1e-2)
 
 
-@pytest.mark.parametrize("kw", [dict(use_loop_closing=False, masks=True)], ids=["masks"])
+@pytest.mark.parametrize("kw", [dict(use_loop_closing=True, masks=True)], ids=["masks"])
 def test_unported_modes_raise(world, kw):
-    """The mdBRIEF masks are not ported yet."""
+    """mdBRIEF's learned masks construct (nothing raises): the x0.5
+    thresholds, and use_masks on the mapper and the loop closer, before and
+    after reset() (tests/test_torch_masked_system.py runs the mode)."""
     settings = SlamSettings(extractor=ExtractorSettings(use_mdbrief=1, learn_masks=1)) if kw.pop("masks", False) \
         else SlamSettings()
-    with pytest.raises(NotImplementedError):
-        MultiColSLAM(_rig(world.rig), settings, device="cpu", **kw)
+    slam = MultiColSLAM(_rig(world.rig), settings, device="cpu", **kw)
+    for _ in range(2):
+        assert slam.use_masks and (slam.th_track, slam.th_low) == (48.0, 32.0)
+        assert slam.mapper.use_masks and slam.loop_closer.use_masks
+        slam.reset()
+    dbrief = MultiColSLAM(_rig(world.rig), SlamSettings(extractor=ExtractorSettings(use_mdbrief=1)), device="cpu")
+    assert not dbrief.use_masks and (dbrief.th_track, dbrief.th_low) == (96.0, 64.0)
+    assert not dbrief.mapper.use_masks and not dbrief.loop_closer.use_masks
+
+
+def test_reference_of_another_bank_is_replaced(world, jax_run):
+    """A reset with a runtime-bank frame in flight (the CLI's prefetch)
+    makes that frame the reference of the next bootstrap while the next
+    frames come with the init bank's 2x features: the first of those
+    replaces the reference, and the bootstrap goes on from it."""
+    from multicol_slam_tpu_torch.slam import system as tsys
+    from multicol_slam_tpu_torch.slam.features import downselect_features
+
+    slam = MultiColSLAM(_rig(world.rig), SlamSettings(fps=25.0, extractor=ExtractorSettings(n_features=N_FEATS,
+                                                                                          n_levels=1)),
+                        MapConfig(**MAP), use_loop_closing=False, seed=SEED, device="cpu")
+    small, _ = downselect_features(_port_feats(jax_run[1][0]), N_FEATS // 2)
+    slam.track(feats=small, timestamp=world.timestamps[0])
+    assert slam.state == tsys.INITIALIZING and slam.ref_feats.valid.shape[1] == N_FEATS // 2
+    full = _port_feats(jax_run[1][1])
+    slam.track(feats=full, timestamp=world.timestamps[1])
+    assert slam.state == tsys.INITIALIZING and slam.ref_feats is full
+    for t in range(2, 8):
+        slam.track(feats=_port_feats(jax_run[1][t]), timestamp=world.timestamps[t])
+    assert slam.state == WORKING
 
 
 @pytest.mark.parametrize("loops", [True, False], ids=["loops", "async"])
