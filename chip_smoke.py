@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's tracking step, map bootstrap, system (sync and
 async), loop closing, CLI and eval entry, with ORB and with mdBRIEF's
-learned masks, on one CUDA card.
+learned masks, map checkpoint and resume, localization mode, the viewer,
+the profiler, self-calibrating BA and the long run, on one CUDA card.
 
     python3 chip_smoke.py [--reloc-dump NPZ]
 
@@ -62,9 +63,9 @@ Phases, each reported on its own lines:
      (its mapping stages synchronised). One line a frame; then the frame
      it initialized on, frames tracked, keyframes, map points, ATE against
      the world's poses, K1 launches by caller, times by stage, and gates on
-     them. A replay with the plain matcher over the first 20 frames must
+     them. A replay with the plain matcher over the first 12 frames must
      give the same states, inliers and keyframes, and bit-identical
-     keyframe poses at frame 30. Then
+     keyframe poses at frame 12. Then
      the relocalization branch on three frames against the final map;
      `--reloc-dump NPZ` writes that map and those frames' features for
      tests/torch_reloc_witness.py.
@@ -123,15 +124,32 @@ Phases, each reported on its own lines:
      stream, tracked >= the reference's - 2, ATE <= 4x its; (d) `eval
      --mdbrief --seeds 3` beside the loop pool, as phase 14's: median <
      0.25 m, seed 7 >= 15 of 25 tracked.
+ 16. resume (C5): (a) phase 13's sync run saves its map (--save-map); the
+     file loads equal to the live store at exit (every array, pt_nobs and
+     the metadata); (b) `cli.main --load-map --localization --sync-mapping
+     --viz DIR --viz-every 10` over the frames from 40 on: the keyframes
+     and points exactly as loaded, no K1 launch at fusion or the loop
+     closer, gates around the JAX package's CPU run of the same commands
+     (tests/torch_localization_reference.py): first frame tracked <= its
+     + 2, tracked >= its - 2, ATE of the file <= 2x its; the viewer's files
+     (.npz where matplotlib is absent) every 10 frames with their keys;
+     (c) `--load-map` async: >= 1 keyframe mapped on the worker, no worker
+     error; (d) `--profile DIR` over frames 0-4: the trace's device-busy
+     share (CUDA kernel time over the loop's wall time; reported).
+ 17. selfcal and the long run, in processes of their own beside the loop
+     pool: `python3 -m multicol_slam_tpu_torch.eval --selfcal` (>= 10x),
+     `python3 -m multicol_slam_tpu_torch.longrun --frames 100` (the full
+     run's first 100 frames: no exception, >= 90 % tracked; their K1
+     launches are not counted here).
 Each time stands beside two bounds: the bytes at the HBM rate against the
 products of the P pairs that pass at the int8 tensor-core peak (what this
 run's data needs), and the dense one that counts every pair, as the TPU
 kernel computes them.
 Then one JSON line of kernels, and last {"ok": true, "device": {...}}.
-The order of the run: 1-5, 6-7, 10, 11 (14, 15's eval and 13's dataset
-beside it), 12, 13, 15, then 8 and 9 on the captured launches (the
-worker-stream fusion launches of 12, 13 and 15 among them). Every phase
-runs before a failed gate of 12-15 raises.
+The order of the run: 1-5, 6-7, 10, 11 (14, 15's eval, 17 and 13's
+dataset beside it), 12, 13, 15, 16, then 8 and 9 on the captured launches
+(the worker-stream fusion launches of 12, 13 and 15 among them). Every
+phase runs before a failed gate of 12-17 raises.
 Any failure raises and exits non-zero. Needs one card; no CPU fallback.
 """
 import json
@@ -988,7 +1006,7 @@ SYS_MIN_TRACKED = 55
 SYS_KF_RANGE = (7, 11)
 SYS_PT_RANGE = (540, 820)
 SYS_ATE_GATE = 0.045
-SYS_REPLAY_FRAMES = 20   # the plain-matcher replay's depth (the bootstrap and the first two keyframes)
+SYS_REPLAY_FRAMES = 12   # the plain-matcher replay's depth (the bootstrap and the first keyframe)
 # relocalization, called on these frames' features against the final map.
 # It is reported, not gated: its matches carry no ratio test, so ~35-42 %
 # of them are inliers at this width and 160 six-point hypotheses find the
@@ -1062,6 +1080,17 @@ def _thread_recorded(fn, sink):
     return wrapped
 
 
+def _outcome_recorded(fn, sink):
+    """A system method wrapped to append the frame id to sink when it
+    returns True (a relocalization that succeeded)."""
+    def wrapped(slam, *args, **kw):
+        ok = fn(slam, *args, **kw)
+        if ok:
+            sink.append(slam.frame_id)
+        return ok
+    return wrapped
+
+
 def new_record():
     """What an instrumented run records: K1 launches by caller (and by
     caller and thread), stage ms, the last fusion launch's (its outputs,
@@ -1073,7 +1102,7 @@ def new_record():
             "ms": {"global_ba": [], "local_ba": [], "create_new_points": [], "fuse_neighbors": [], "loop_process": [],
                    "vocab_train": [], "loop_correct": [], "eg_solve": []},
             "fuse_args": [], "fuse_out": {}, "loop_args": {"loop_sim3_check": [], "loop_search_and_fuse": []},
-            "frame_launches": [], "map_size": [], "run_threads": []}
+            "frame_launches": [], "map_size": [], "run_threads": [], "relocalized": []}
 
 
 def instrument(rec, timed=True):
@@ -1107,6 +1136,7 @@ def instrument(rec, timed=True):
           lambda f: _counted(_capturing(f, rec["fuse_args"], rec["fuse_out"]), KERNEL, "fuse", counts, bt))
     patch(loop_module, "fuse_match", lambda f: _loop_fuse_match(f, KERNEL, counts, rec["loop_args"], bt))
     patch(LocalMapper, "run", lambda f: _thread_recorded(f, rec["run_threads"]))
+    patch(MultiColSLAM, "_relocalize", lambda f: _outcome_recorded(f, rec["relocalized"]))
     if not timed:
         return patched
     patch(loop_module, "build_vocabulary", lambda f: _timed(f, ms["vocab_train"]))
@@ -1557,6 +1587,13 @@ EVAL_TIMEOUT = 600
 # the eval processes: phase 14's two modes and phase 15's mdBRIEF with masks
 EVAL_MODES = {"sync": [], "async": ["--async"], "mdbrief": ["--mdbrief"]}
 EVAL_MD_GATE = 0.25           # tests/test_eval_accuracy.py:49-61, mdBRIEF's
+# phase 17, beside the pool too: eval --selfcal and the long run's first
+# LONGRUN_FRAMES frames of its 1600-frame world (the full run takes longer
+# than this script may)
+LONGRUN_FRAMES = 100
+SELFCAL_GATE = 10.0           # tests/test_eval_accuracy.py:100-110
+SELFCAL_EVAL_MD = "27.2-27.3x"   # EVAL.md's reduction of the JAX package (a ratio)
+LONGRUN_MIN_TRACKED = 0.9
 _CHILDREN = []                # processes this script started, stopped at its end
 
 
@@ -1575,9 +1612,10 @@ def write_cli_dataset(out_dir):
 
 def start_beside(tmp):
     """Start the jobs that run beside the loop phase's pool: the CLI
-    dataset's writer, and `python3 -m multicol_slam_tpu_torch.eval --seeds 3
-    [--async | --mdbrief]`. Returns a callable that waits for them and returns the
-    dataset's directory and the evals' results."""
+    dataset's writer, `python3 -m multicol_slam_tpu_torch.eval --seeds 3
+    [--async | --mdbrief]`, and phase 17's `eval --selfcal` and `longrun
+    --frames LONGRUN_FRAMES`. Returns a callable that waits for them and
+    returns the dataset's directory and the processes' results."""
     import multiprocessing
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1585,21 +1623,23 @@ def start_beside(tmp):
     writer = multiprocessing.get_context("spawn").Process(target=write_cli_dataset, args=(dataset,))
     writer.start()
     _CHILDREN.append(writer)
-    evals = {}
-    for mode, flags in EVAL_MODES.items():
-        logf = open(os.path.join(tmp, f"eval_{mode}.log"), "w")
-        cmd = [sys.executable, "-m", "multicol_slam_tpu_torch.eval", "--seeds", str(EVAL_SEEDS), "--frames",
-               str(EVAL_FRAMES), "--out", os.path.join(tmp, f"eval_{mode}")] + flags
-        proc = subprocess.Popen(cmd, cwd=root, stdout=logf, stderr=subprocess.STDOUT,
+    jobs = {mode: ["multicol_slam_tpu_torch.eval", "--seeds", str(EVAL_SEEDS), "--frames", str(EVAL_FRAMES), "--out",
+                   os.path.join(tmp, f"eval_{mode}")] + flags for mode, flags in EVAL_MODES.items()}
+    jobs["selfcal"] = ["multicol_slam_tpu_torch.eval", "--selfcal"]
+    jobs["longrun"] = ["multicol_slam_tpu_torch.longrun", "--frames", str(LONGRUN_FRAMES), "--out", os.path.join(tmp, "LONGRUN.jsonl")]
+    procs = {}
+    for name, args in jobs.items():
+        logf = open(os.path.join(tmp, f"{name}.log"), "w")
+        proc = subprocess.Popen([sys.executable, "-m"] + args, cwd=root, stdout=logf, stderr=subprocess.STDOUT,
                                 env=dict(os.environ, OMP_NUM_THREADS="2"))
         _CHILDREN.append(proc)
-        evals[mode] = (proc, logf)
+        procs[name] = (proc, logf)
     t0 = time.perf_counter()
 
     def wait():
         writer.join()
         results = {}
-        for mode, (proc, logf) in evals.items():
+        for name, (proc, logf) in procs.items():
             try:
                 rc = proc.wait(timeout=EVAL_TIMEOUT)
             except subprocess.TimeoutExpired:
@@ -1609,10 +1649,13 @@ def start_beside(tmp):
             with open(logf.name) as f:
                 text = f.read()
             lines = [ln for ln in text.splitlines() if ln.startswith("{")]
-            results[mode] = dict(rc=rc, result=json.loads(lines[-1]) if lines else None, tail=text[-1500:])
-        log(f"cli: the dataset writer and the {len(evals)} eval processes done {time.perf_counter() - t0:.3f} s after "
-            f"they started (beside the loop phase's pool); writer exit code {writer.exitcode}")
-        return dict(dataset=dataset, writer_rc=writer.exitcode, evals=results)
+            results[name] = dict(rc=rc, result=json.loads(lines[-1]) if lines else None, tail=text[-1500:],
+                                 s=time.perf_counter() - t0)
+        log(f"cli: the dataset writer and the {len(procs)} processes ({', '.join(procs)}) done "
+            f"{time.perf_counter() - t0:.3f} s after they started (beside the loop phase's pool); writer exit code "
+            f"{writer.exitcode}")
+        return dict(dataset=dataset, writer_rc=writer.exitcode,
+                    evals={m: results[m] for m in EVAL_MODES}, phase17={m: results[m] for m in ("selfcal", "longrun")})
     return wait
 
 
@@ -1654,11 +1697,13 @@ def check_worker_fusion(rec, label):
     return failed, a
 
 
-def cli_run(world, settings, dataset, mode, label, card):
+def cli_run(world, settings, dataset, mode, label, card, extra=(), first=0):
     """`cli.main` over the dataset with a settings file, in `mode` ("sync":
-    --sync-mapping, or the async default), K1 launches counted by caller and
-    by thread (no synchronised timers). Logs the run; returns its summary,
-    the instrumented record and the system."""
+    --sync-mapping, or the async default), with the `extra` flags, K1
+    launches counted by caller and by thread (no synchronised timers);
+    `first`: the dataset frame of the run's first frame (its traj.StartFrame
+    - 1). Logs the run; returns its summary, the instrumented record and the
+    system."""
     import torch
     from multicol_slam_tpu_torch import cli
     from multicol_slam_tpu_torch.io.trajectory import ate_rmse, load_tum_trajectory, umeyama_align
@@ -1685,7 +1730,7 @@ def cli_run(world, settings, dataset, mode, label, card):
     KERNEL.by_thread.clear()
     t0 = time.perf_counter()
     try:
-        rc = cli.main(["no_voc.yml", settings, dataset, dataset, "--metrics", metrics]
+        rc = cli.main(["no_voc.yml", settings, dataset, dataset, "--metrics", metrics, *extra]
                       + (["--sync-mapping"] if mode == "sync" else []))
     finally:
         os.chdir(cwd)
@@ -1700,11 +1745,11 @@ def cli_run(world, settings, dataset, mode, label, card):
     init_frame = working[0].frame_id if working else None
     ate = float("inf")
     if len(working) >= 3:
-        gt = pos(world.poses[[m.frame_id for m in working]])
+        gt = pos(world.poses[[first + m.frame_id for m in working]])
         ate = float(np.sqrt(np.mean(np.sum((umeyama_align(pos(np.stack([m.pose for m in working])), gt) - gt)
                                            ** 2, -1))))
     t_est, p_est = load_tum_trajectory(os.path.join(run_dir, "MKFTrajectoryLAFIDA.txt"))
-    ate_file = float(ate_rmse(t_est, p_est, world.timestamps, pos(world.poses)))
+    ate_file = float(ate_rmse(t_est, p_est, world.timestamps, pos(world.poses))) if len(t_est) >= 3 else float("inf")
     with open(metrics) as f:
         summary = json.loads(f.read().splitlines()[-1])
     ms_kf = [m.track_ms for m in working if m.is_keyframe]
@@ -1720,12 +1765,12 @@ def cli_run(world, settings, dataset, mode, label, card):
              launches_by_caller=dict(rec["launches"]), launches_by_caller_thread=dict(rec["launches_by_thread"]),
              ms_frame=float(np.median(ms_plain)) if ms_plain else float("nan"),
              ms_keyframe=float(np.median(ms_kf)) if ms_kf else float("nan"),
-             frame_ms=[m.track_ms for m in frames], wall=wall)
+             relocalized=list(rec["relocalized"]), frame_ms=[m.track_ms for m in frames], wall=wall)
     log(f"{label}: `cli.main` over {len(frames)} frames of {C}x{W}x{H} in {wall:.3f} s, exit code {rc}; "
         f"initialized on frame {init_frame}; {len(working)} tracked; keyframes on frames {u['kf_frames']}; "
         f"{u['n_kf']} keyframes, {u['n_pt']} points; mapping passes {u['mapping_passes']}, {on_worker} on the "
         f"worker; keyframes deferred with the mapper busy {u['kf_deferred_mapper_busy']}; worker errors "
-        f"{u['worker_errors']}, worker joined {joined}")
+        f"{u['worker_errors']}, worker joined {joined}; relocalized on frames {u['relocalized']}")
     log(f"{label}: ATE (Sim3-aligned) of the track-time poses {ate:.6f} m, of MKFTrajectoryLAFIDA.txt "
         f"(keyframe-composed, {len(t_est)} lines) {ate_file:.6f} m")
     log(f"{label}: K1 launches {launches}, by thread {by_thread}, by caller {rec['launches']}, by caller "
@@ -1735,15 +1780,17 @@ def cli_run(world, settings, dataset, mode, label, card):
     return u, rec, slam
 
 
-def phase_cli(dev, boot, card, dataset):
+def phase_cli(dev, boot, card, dataset, map_path):
     """C1: `cli.main` on the system phase's world written to disk, sync then
-    the async default, at full width; the gates. Returns what the kernels
-    line needs."""
+    the async default, at full width; the gates. The sync run saves its map
+    to `map_path` (--save-map; phase 16). Returns what the kernels line
+    needs and the sync run's system."""
     settings = os.path.join(dataset, "Slam_Settings_synthetic.yaml")
-    out, failed, worker_args = {}, [], None
+    out, failed, worker_args, systems = {}, [], None, {}
     for mode in ("sync", "async"):
-        u, rec, slam = cli_run(boot[0], settings, dataset, mode, f"cli: {mode}", card)
-        out[mode] = u
+        u, rec, slam = cli_run(boot[0], settings, dataset, mode, f"cli: {mode}", card,
+                               extra=["--save-map", map_path] if mode == "sync" else [])
+        out[mode], systems[mode] = u, slam
         launches, ate, ate_file = u["launches"], u["ate"], u["ate_file"]
         log(f"cli: {mode}: gate {CLI_ATE_GATE[mode]} m on both ATEs")
         if sum(rec["launches"].values()) != launches:
@@ -1761,7 +1808,7 @@ def phase_cli(dev, boot, card, dataset):
                               f"{u['launches_by_thread']}")
             f, worker_args = check_worker_fusion(rec, "cli: async")
             failed += f
-    return out, failed, worker_args
+    return out, failed, worker_args, systems["sync"]
 
 
 def phase_async_loop(dev, card, loop):
@@ -1824,6 +1871,27 @@ def phase_eval(beside):
             failed.append(f"eval {mode}: exit code {r['rc']}, result {res}; output: {r['tail']}")
         out[mode] = res
     return out, failed
+
+
+def phase_selfcal_longrun(beside, card):
+    """Phase 17: the results of `eval --selfcal` (>= 10x) and of `longrun
+    --frames LONGRUN_FRAMES` (no exception, >= 90 % tracked), run beside the
+    loop phase's pool."""
+    failed = []
+    r = beside["phase17"]["selfcal"]
+    res = r["result"]
+    log(f"selfcal: exit code {r['rc']}; {json.dumps(res)}; gate >= {SELFCAL_GATE}x (the JAX package's "
+        f"{SELFCAL_EVAL_MD} in EVAL.md, a ratio); done by {r['s']:.1f} s after the pool started [{card}]")
+    if r["rc"] != 0 or res is None or not res["value"] >= SELFCAL_GATE:
+        failed.append(f"selfcal: exit code {r['rc']}, result {res}; output: {r['tail']}")
+    r = beside["phase17"]["longrun"]
+    res = r["result"]
+    log(f"longrun: exit code {r['rc']}; summary {json.dumps(res)}; gate >= {LONGRUN_MIN_TRACKED:.0%} of "
+        f"{LONGRUN_FRAMES} tracked; done by {r['s']:.1f} s after the pool started [{card}]")
+    if (r["rc"] != 0 or res is None or not res.get("summary")
+            or res["tracked"] < LONGRUN_MIN_TRACKED * LONGRUN_FRAMES):
+        failed.append(f"longrun: exit code {r['rc']}, summary {res}; output: {r['tail']}")
+    return dict(selfcal=beside["phase17"]["selfcal"]["result"], longrun=res), failed
 
 
 # phase 15, mdBRIEF: the system recipe with mdBRIEF's learned stability masks
@@ -2030,6 +2098,134 @@ def phase_mdbrief(dev, boot, card, dataset):
             failed, [(n, a) for n, a in captured if a is not None])
 
 
+# phase 16, resume (C5): phase 13's sync run saves its map; the CLI resumes
+# from it in localization mode over the frames from LOC_START on (they see
+# the map's last keyframes, the only candidates a resumed map relocalizes
+# against), then async without localization, then a profiled short run.
+# The gates centre on the JAX package's CPU run of the same two commands
+# (tests/torch_localization_reference.py): its first frame tracked (from the
+# identity pose, as a resumed LOST frame tracks before it relocalizes),
+# frames tracked and the ATE of its trajectory file.
+LOC_START = 40
+LOC_REF = dict(first=0, tracked=20, ate=0.160015)
+VIZ_EVERY = 10
+PROFILE_FRAMES = 5
+FROZEN = ("kf_valid", "kf_pose", "kf_point", "kf_desc", "pt_valid", "pt_X", "pt_desc")
+
+
+def derived_settings(dataset, name, keys):
+    """A copy of the dataset's settings with some keys replaced."""
+    from multicol_slam_tpu_torch.eval import set_yaml_keys
+
+    path = os.path.join(os.path.dirname(dataset), name)
+    shutil.copyfile(os.path.join(dataset, "Slam_Settings_synthetic.yaml"), path)
+    set_yaml_keys(path, keys)
+    return path
+
+
+def trace_busy(path):
+    """Kernel time over wall time of a torch.profiler Chrome trace: the
+    union of the CUDA kernels' intervals against the span of every event
+    (the profiled loop). Returns a dict of the counts, ms and the share."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    kernels = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events if e.get("cat") == "kernel")
+    busy, end = 0.0, -np.inf
+    for a, b in kernels:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    t0 = min(float(e["ts"]) for e in events)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    return dict(events=len(events), kernels=len(kernels), kernel_ms=busy / 1e3, wall_ms=(t1 - t0) / 1e3,
+                busy_share=busy / (t1 - t0), trace_mb=os.path.getsize(path) / 2 ** 20)
+
+
+def phase_resume(card, world, dataset, map_path, live):
+    """Phase 16 (C5). (a) the map phase 13's sync run saved equals its
+    store at exit; (b) `cli.main --load-map --localization --sync-mapping
+    --viz` from LOC_START: the map exactly as loaded, no K1 launch at fusion
+    or the loop closer, the gates around the JAX package's run, the viewer's
+    dumps; (c) `--load-map` async: >= 1 keyframe mapped on the worker, no
+    worker error; (d) `--profile` over the first PROFILE_FRAMES frames: the
+    device-busy share of the tracking loop (reported). Returns (results,
+    failures)."""
+    from multicol_slam_tpu_torch.io import viz
+    from multicol_slam_tpu_torch.io.checkpoint import _ARRAY_FIELDS, load_map
+
+    failed, out = [], {}
+    saved = load_map(map_path)
+    diff = [f for f in _ARRAY_FIELDS + ["pt_nobs"] if not np.array_equal(getattr(saved, f), getattr(live, f))]
+    meta = lambda s: (vars(s.cfg), s.n_kf, s.n_pt_alloc, s._free_kf, s._free_pt,  # noqa: E731
+                      [tuple(e) for e in s.loop_edges])
+    log(f"resume: (a) the sync CLI run's --save-map {os.path.getsize(map_path) / 2 ** 20:.3f} MiB: "
+        f"{int(saved.kf_valid.sum())} keyframes, {int(saved.pt_valid.sum())} points; {len(_ARRAY_FIELDS)} arrays "
+        f"and pt_nobs {'equal' if not diff else f'differ: {diff}'} to the live store at exit, metadata "
+        f"{'equal' if meta(saved) == meta(live) else 'differs'}")
+    if diff or meta(saved) != meta(live):
+        failed.append(f"resume (a): the saved map differs from the live store: {diff}")
+    out["saved"] = dict(n_kf=int(saved.kf_valid.sum()), n_pt=int(saved.pt_valid.sum()),
+                        kf_frames=sorted(int(f) for f in saved.kf_frame_id[saved.kf_valid]))
+
+    settings = derived_settings(dataset, "loc_settings.yaml", {"traj.StartFrame": LOC_START + 1})
+    viz_dir = tempfile.mkdtemp(prefix="viz_")
+    u, rec, slam = cli_run(world, settings, dataset, "sync", "resume: (b) localization", card,
+                           extra=["--load-map", map_path, "--localization", "--viz", viz_dir, "--viz-every",
+                                  str(VIZ_EVERY)], first=LOC_START)
+    same = [f for f in FROZEN if not np.array_equal(getattr(slam.store, f), getattr(saved, f))]
+    n = len(slam.trajectory)
+    ext = ".png" if viz._mpl() is not None else ".png.npz"
+    want = [f"{k}_{t:06d}{ext}" for k in ("frame", "map") for t in range(0, n, VIZ_EVERY)]
+    names = sorted(os.listdir(viz_dir))
+    keys = {}
+    if ext == ".png.npz":
+        for name in names:
+            with np.load(os.path.join(viz_dir, name)) as d:
+                keys[name.split("_")[0]] = sorted(d.files)
+    mapped_calls = {k: v for k, v in rec["launches"].items() if k == "fuse" or k.startswith("loop")}
+    log(f"resume: (b) store after the run: {int(slam.store.kf_valid.sum())} keyframes, "
+        f"{int(slam.store.pt_valid.sum())} points; {list(FROZEN)} {'as loaded' if not same else f'changed: {same}'}; "
+        f"first frame tracked {u['init_frame']} (the JAX package: {LOC_REF['first']}), tracked {u['tracked']}/{n} "
+        f"({LOC_REF['tracked']}), ATE of the file {u['ate_file']:.6f} m ({LOC_REF['ate']}), relocalized on "
+        f"{u['relocalized']}; K1 at fusion and the loop closer {mapped_calls}")
+    log(f"resume: (b) viewer: {len(names)} files in {viz_dir} ({ext}), keys {keys}")
+    if same or any(mapped_calls.values()) or any(m.is_keyframe for m in slam.trajectory):
+        failed.append(f"resume (b): the map changed ({same}) or was extended (K1 {mapped_calls})")
+    if (u["rc"] != 0 or u["init_frame"] is None or u["init_frame"] > LOC_REF["first"] + 2
+            or u["tracked"] < LOC_REF["tracked"] - 2 or not u["ate_file"] <= 2 * LOC_REF["ate"]):
+        failed.append(f"resume (b): exit code {u['rc']}, first tracked {u['init_frame']}, tracked {u['tracked']}, ATE "
+                      f"{u['ate_file']}; gates {LOC_REF['first'] + 2}, {LOC_REF['tracked'] - 2}, {2 * LOC_REF['ate']}")
+    if names != want or (keys and keys != {"frame": ["tracked", "uv", "valid"], "map": ["kf_poses", "points"]}):
+        failed.append(f"resume (b): viewer files {names}, keys {keys}; want {want}")
+    if sum(rec["launches"].values()) != u["launches"]:
+        failed.append(f"resume (b): K1 launches by caller {rec['launches']} do not add up to {u['launches']}")
+    out["localization"] = {k: v for k, v in u.items() if k != "frame_ms"}
+
+    u, rec, slam = cli_run(world, settings, dataset, "async", "resume: (c) async", card,
+                           extra=["--load-map", map_path], first=LOC_START)
+    if (u["rc"] != 0 or u["mapped_on_worker"] < 1 or slam.worker_errors or not u["worker_joined"]
+            or sum(rec["launches"].values()) != u["launches"]):
+        failed.append(f"resume (c): exit code {u['rc']}, {u['mapped_on_worker']} keyframes mapped on the worker, "
+                      f"{len(slam.worker_errors)} worker errors, joined {u['worker_joined']}, K1 by caller "
+                      f"{rec['launches']} of {u['launches']}")
+    out["async"] = {k: v for k, v in u.items() if k != "frame_ms"}
+
+    settings = derived_settings(dataset, "profile_settings.yaml", {"traj.EndFrame": PROFILE_FRAMES + 1})
+    prof_dir = tempfile.mkdtemp(prefix="profile_")
+    u, rec, _ = cli_run(world, settings, dataset, "sync", "resume: (d) profile", card, extra=["--profile", prof_dir])
+    t0 = time.perf_counter()
+    busy = trace_busy(os.path.join(prof_dir, "trace.json"))
+    log(f"resume: (d) --profile over frames 0-{PROFILE_FRAMES - 1} (the bootstrap: reference, attempts, the "
+        f"initializing frame's global BA and mapping, then tracking): trace {busy['trace_mb']:.1f} MiB, "
+        f"{busy['events']} events, {busy['kernels']} CUDA kernels; kernel time {busy['kernel_ms']:.3f} ms of "
+        f"{busy['wall_ms']:.3f} ms wall, device-busy share {busy['busy_share']:.4f} (read in "
+        f"{time.perf_counter() - t0:.1f} s) [{card}]")
+    if u["rc"] != 0 or busy["kernels"] == 0:
+        failed.append(f"resume (d): exit code {u['rc']}, {busy['kernels']} kernels in the trace")
+    out["profile"] = dict(busy, launches=u["launches"], frames=PROFILE_FRAMES)
+    return out, failed
+
+
 def main(argv=None):
     import argparse
 
@@ -2073,10 +2269,13 @@ def main(argv=None):
         system = phase_system(dev, boot, card, args.reloc_dump)
         loop = phase_loop(dev, card, beside_pool=lambda: start_beside(tmp))
         async_loop, failed, worker_loop = phase_async_loop(dev, card, loop)
-        cli_out, failed_cli, worker_cli = phase_cli(dev, boot, card, loop["beside"]["dataset"])
+        map_path = os.path.join(tmp, "resume_map.npz")
+        cli_out, failed_cli, worker_cli, cli_sync = phase_cli(dev, boot, card, loop["beside"]["dataset"], map_path)
         evals, failed_eval = phase_eval(loop["beside"])
+        p17, failed_17 = phase_selfcal_longrun(loop["beside"], card)
         md, failed_md, md_captured = phase_mdbrief(dev, boot, card, loop["beside"]["dataset"])
-        failed += failed_cli + failed_eval + failed_md
+        resume, failed_resume = phase_resume(card, boot[0], loop["beside"]["dataset"], map_path, cli_sync.store)
+        failed += failed_cli + failed_eval + failed_17 + failed_md + failed_resume
         if loop["beside"]["writer_rc"] != 0:
             failed.append(f"the CLI dataset's writer exited with {loop['beside']['writer_rc']}")
         worker_rows = [(name, a) for name, a in (("CLI async fusion, worker stream", worker_cli),
@@ -2111,6 +2310,10 @@ def main(argv=None):
     cli_paths.update({f"loop_B_async_{role(th)}": n for th, n in async_loop["by_thread"].items()})
     cli_paths.update({f"mdbrief_cli_async_{role(th)}": n for th, n in md["cli_async"]["launches_by_thread"].items()})
     cli_paths.update({f"mdbrief_system_{k}": v for k, v in md["launches"].items()})
+    for run in ("localization", "async", "profile"):
+        r = resume[run]
+        cli_paths.update({f"resume_{run}_{role(th)}": n for th, n in r["launches_by_thread"].items()}
+                         if run != "profile" else {"resume_profile_tracker": r["launches"]})
     log(json.dumps({"kernels": [{
         "name": "masked_best_match_cams",
         "route": "cuda",
@@ -2122,7 +2325,9 @@ def main(argv=None):
                              **{f"system_{k}": v for k, v in system["launches"].items()}, **loop["launches"],
                              **cli_paths},
         "launches_by_caller_and_thread": {**{f"cli_{m}": u["launches_by_caller_thread"] for m, u in cli_out.items()},
-                                          "loop_B_async": async_loop["by_caller_thread"]},
+                                          "loop_B_async": async_loop["by_caller_thread"],
+                                          **{f"resume_{m}": resume[m]["launches_by_caller_thread"]
+                                             for m in ("localization", "async")}},
         "max_abs_err": max_err,
         "ms": tk["ms"],
         "plain_ms": tk["plain_ms"],
@@ -2149,6 +2354,8 @@ def main(argv=None):
         "async_loop": async_loop,
         "eval": evals,
         "mdbrief": md,
+        "resume": resume,
+        "selfcal_longrun": p17,
     }, {
         "name": "masked_best_match",
         "route": "cuda",

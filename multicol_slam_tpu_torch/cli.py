@@ -5,6 +5,8 @@ Usage (mult_col_slam_lafida.cpp:63-164):
     python3 -m multicol_slam_tpu_torch.cli <path_to_vocabulary> <path_to_settings>
                                            <path_to_calibrations> <path_to_sequence>
                                            [--sync-mapping | --async-mapping] [--metrics PATH]
+                                           [--save-map PATH] [--load-map PATH] [--localization]
+                                           [--viz DIR [--viz-every N]] [--profile DIR]
 
 Reads `<sequence>/images_and_timestamps.txt` (one line a frame: `timestamp
 img0 img1 img2`, :167-198), tracks every frame in [traj.StartFrame,
@@ -16,12 +18,23 @@ writes the per-frame metrics as JSON lines with a summary line. The exit
 code is 2 when the mapping worker failed on a keyframe (it prints the
 traceback and goes on, as the reference does).
 
+  --save-map PATH    the map as a checkpoint at the end (io/checkpoint.py)
+  --load-map PATH    resume from a checkpoint: the first frame relocalizes
+                     into the loaded map, which is never auto-reset
+  --localization     track against the map without changing it (no
+                     keyframes, mapping or loop closing)
+  --viz DIR          every N-th frame (--viz-every, default 25) the frame's
+                     keypoints and the map as PNGs in DIR (io/viz.py; .npz
+                     dumps where matplotlib is not installed)
+  --profile DIR      a torch.profiler trace of the tracking loop (CPU, and
+                     CUDA on the card) as DIR/trace.json
+
 The command line runs on the card; `main([...], device="cpu")` runs the
-same on the CPU. --viz, --viz-every, --save-map, --load-map, --localization
-and --profile are not ported yet (ROADMAP.md, Queue 1 item 4).
+same on the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -29,12 +42,15 @@ from typing import List, Tuple
 
 import numpy as np
 
+import torch
+
 from multicol_slam_tpu_torch.device import DEFAULT_DEVICE
+from multicol_slam_tpu_torch.io.checkpoint import load_map
+from multicol_slam_tpu_torch.io.viz import Visualizer
 from multicol_slam_tpu_torch.models.vocab import KeyFrameDatabase, load_dbow2_yaml
 from multicol_slam_tpu_torch.slam.system import MultiColSLAM
 from multicol_slam_tpu_torch.utils.config import load_rig, load_slam_settings
 
-UNPORTED_FLAGS = ("--viz", "--viz-every", "--save-map", "--load-map", "--localization", "--profile")
 GRAY = np.asarray([0.299, 0.587, 0.114])   # Camera.RGB's conversion
 
 
@@ -111,15 +127,30 @@ def load_gray(path: str) -> np.ndarray:
 def main(argv=None, device=DEFAULT_DEVICE) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     metrics_path = None
+    viz_dir = None
+    viz_every = 25
+    save_map_path = None
+    load_map_path = None
+    profile_dir = None
+    localization_only = False
     async_mapping = True   # mapping and loop closing on a worker thread, the reference's layout
     pos = []
     it = iter(argv)
     for a in it:
-        if a in UNPORTED_FLAGS:
-            raise NotImplementedError(f"{a} is not ported yet (ROADMAP.md, Queue 1 item 4: checkpoint, "
-                                      "localization mode, viz and the rest of the CLI surface)")
         if a == "--metrics":
             metrics_path = next(it)
+        elif a == "--viz":
+            viz_dir = next(it)
+        elif a == "--viz-every":
+            viz_every = int(next(it))
+        elif a == "--save-map":
+            save_map_path = next(it)
+        elif a == "--load-map":
+            load_map_path = next(it)
+        elif a == "--profile":
+            profile_dir = next(it)
+        elif a == "--localization":
+            localization_only = True
         elif a == "--sync-mapping":
             async_mapping = False
         elif a == "--async-mapping":
@@ -141,27 +172,48 @@ def main(argv=None, device=DEFAULT_DEVICE) -> int:
             print(f"vocabulary load failed ({e}); loop closer will self-train")
     slam = MultiColSLAM(rig, settings, async_mapping=async_mapping, device=device)
     try:
+        if load_map_path is not None:
+            slam.resume(load_map(load_map_path))
+            print(f"resumed map: {int(slam.store.kf_valid.sum())} keyframes, "
+                  f"{int(slam.store.pt_valid.sum())} points")
+        if localization_only:
+            slam.activate_localization_mode()
         if voc is not None and slam.loop_closer is not None:
+            # an empty database: a resumed map's keyframes are not in it
             slam.loop_closer.voc = voc
             slam.loop_closer.db = KeyFrameDatabase(voc)
+        viz = Visualizer(viz_dir, every=viz_every) if viz_dir is not None else None
         stamps, files = load_image_list(seq_dir, settings.traj_start_frame, settings.traj_end_frame)
         print(f"tracking {len(stamps)} frames ...")
+        profiling = contextlib.nullcontext()
+        if profile_dir is not None:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if slam.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            profiling = torch.profiler.profile(activities=activities)
         times = []
-        # one-frame prefetch: the next frame's load and extraction are
-        # dispatched before this frame's result is read back
-        images = np.stack([load_gray(p) for p in files[0]]) if files else None
-        pending = slam.prepare(images) if files else None
-        for i, t in enumerate(stamps):
-            feats_cur = pending
-            t0 = time.perf_counter()
-            h = slam.track_begin(feats=feats_cur, timestamp=t)
-            if i + 1 < len(files):
-                images = np.stack([load_gray(p) for p in files[i + 1]])
-                pending = slam.prepare(images)
-            m = slam.track_finish(h)
-            times.append(time.perf_counter() - t0)
-            if i % 50 == 0:
-                print(f"frame {i}: state={m.state} inliers={m.n_inliers} {times[-1] * 1e3:.1f} ms")
+        with profiling as prof:
+            # one-frame prefetch: the next frame's load and extraction are
+            # dispatched before this frame's result is read back
+            images = np.stack([load_gray(p) for p in files[0]]) if files else None
+            pending = slam.prepare(images) if files else None
+            for i, t in enumerate(stamps):
+                feats_cur, images_cur = pending, images
+                t0 = time.perf_counter()
+                h = slam.track_begin(feats=feats_cur, timestamp=t)
+                if i + 1 < len(files):
+                    images = np.stack([load_gray(p) for p in files[i + 1]])
+                    pending = slam.prepare(images)
+                m = slam.track_finish(h)
+                times.append(time.perf_counter() - t0)
+                if viz is not None:
+                    viz.update(slam, images_cur, m)
+                if i % 50 == 0:
+                    print(f"frame {i}: state={m.state} inliers={m.n_inliers} {times[-1] * 1e3:.1f} ms")
+        if profile_dir is not None:
+            os.makedirs(profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+            print(f"profiler trace written to {profile_dir}")
         slam.wait_mapping_idle()
     finally:
         slam.shutdown()
@@ -171,6 +223,8 @@ def main(argv=None, device=DEFAULT_DEVICE) -> int:
     slam.save_trajectory(out)
     if metrics_path is not None:
         slam.save_metrics(metrics_path)
+    if save_map_path is not None:
+        slam.save_checkpoint(save_map_path)
     print(f"median tracking time: {np.median(times_arr):.2f} ms")
     print(f"mean tracking time:   {np.mean(times_arr):.2f} ms")
     print(f"trajectory written to {out}")

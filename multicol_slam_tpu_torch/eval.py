@@ -11,6 +11,7 @@ with `io/trajectory.ate_rmse` (Sim3-aligned). Prints ONE JSON line, e.g.
     python3 -m multicol_slam_tpu_torch.eval [--frames N] [--out DIR] [--seed S]
                                             [--seeds N] [--async] [--mdbrief]
                                             [--real-calib [--calib-dir DIR]]
+    python3 -m multicol_slam_tpu_torch.eval --selfcal [--frames N]
 
 Modes:
   (default)     the synthetic rig, 600 landmarks, 200 features x 2 levels,
@@ -22,9 +23,14 @@ Modes:
   --real-calib  the Lafida calibration YAMLs (754x480) at the reference's
                 400 features x 8 levels; prints a "skipped" line when the
                 calibration directory is absent
+  --selfcal     self-calibrating BA (the MultiCol model estimating the rig):
+                a map built with the true rig from oracle features (60
+                frames by default), cameras 1-2's extrinsics perturbed, then
+                freed in one global BA (camera 0 anchors the gauge); exit 0
+                at an error reduction of 10x or more
 
 The command line runs on the card; `main([...], device="cpu")` runs on the
-CPU. --selfcal (ROADMAP.md, Queue 1 item 4) is not ported yet.
+CPU.
 """
 from __future__ import annotations
 
@@ -41,9 +47,12 @@ import torch
 from multicol_slam_tpu_torch import cli
 from multicol_slam_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from multicol_slam_tpu_torch.io.render import write_dataset
-from multicol_slam_tpu_torch.io.synthetic import make_world
+from multicol_slam_tpu_torch.io.synthetic import make_synthetic_rig, make_world
 from multicol_slam_tpu_torch.io.trajectory import ate_rmse, load_tum_trajectory
-from multicol_slam_tpu_torch.utils.config import load_rig
+from multicol_slam_tpu_torch.optim.ba import bundle_adjust
+from multicol_slam_tpu_torch.slam.map_store import MapConfig, cayley_to_hom_np
+from multicol_slam_tpu_torch.slam.system import MultiColSLAM
+from multicol_slam_tpu_torch.utils.config import ExtractorSettings, SlamSettings, load_rig
 
 # where the Lafida calibration YAMLs go when they are in the repository
 LAFIDA_CALIB = str(Path(__file__).resolve().parent.parent / "Examples" / "Lafida")
@@ -51,7 +60,7 @@ LAFIDA_CALIB = str(Path(__file__).resolve().parent.parent / "Examples" / "Lafida
 
 def main(argv=None, device=DEFAULT_DEVICE) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    n_frames = 35
+    n_frames = None   # each mode's own default below
     out_dir = os.path.join(tempfile.gettempdir(), "mcslam_torch_eval")
     real_calib = False
     calib_dir = LAFIDA_CALIB
@@ -59,6 +68,7 @@ def main(argv=None, device=DEFAULT_DEVICE) -> int:
     seed = 7
     n_seeds = 1
     mdbrief = False
+    selfcal = False
     it = iter(argv)
     for a in it:
         if a == "--frames":
@@ -78,13 +88,15 @@ def main(argv=None, device=DEFAULT_DEVICE) -> int:
         elif a == "--mdbrief":
             mdbrief = True
         elif a == "--selfcal":
-            raise NotImplementedError("--selfcal: the self-calibrating BA demo is not ported yet (ROADMAP.md, "
-                                      "Queue 1 item 4)")
+            selfcal = True
         else:
             raise SystemExit(f"unknown arg {a}")
     device = resolve_device(device)
+    if selfcal:
+        return _selfcal(60 if n_frames is None else n_frames, device)
     if real_calib:
-        return _real_calib(n_frames if n_frames != 35 else 40, out_dir + "_real", calib_dir, device)
+        return _real_calib(40 if n_frames is None else n_frames, out_dir + "_real", calib_dir, device)
+    n_frames = 35 if n_frames is None else n_frames
     if n_seeds > 1:
         # the reference's multi-run protocol ("SLAM is not deterministic",
         # Slam_Settings_indoor1.yaml:44-57 traj.trajrun): the median and
@@ -206,6 +218,74 @@ def _real_calib(n_frames: int, out_dir: str, calib_dir: str, device: torch.devic
         "platform": device.type,
     }))
     return 0 if np.isfinite(ate) else 1
+
+
+def _mc_err(mc_a: np.ndarray, mc_b: np.ndarray) -> float:
+    """Mean SE3 discrepancy (rotation rad + translation m) over cameras."""
+    e = 0.0
+    for c in range(len(mc_a)):
+        D = np.linalg.inv(cayley_to_hom_np(np.asarray(mc_a[c], np.float32))) @ cayley_to_hom_np(
+            np.asarray(mc_b[c], np.float32))
+        e += np.arccos(np.clip((np.trace(D[:3, :3]) - 1) / 2, -1, 1)) + np.linalg.norm(D[:3, 3])
+    return e / len(mc_a)
+
+
+def perturb_extrinsics(mc_true: np.ndarray) -> np.ndarray:
+    """Cameras 1.. (camera 0 anchors the gauge) moved by ~1 degree and
+    centimetres, the reference's draws (np.random.default_rng(5))."""
+    rng = np.random.default_rng(5)
+    mc = np.asarray(mc_true, np.float32).copy()
+    mc[1:, :3] += rng.normal(0, 0.008, mc[1:, :3].shape).astype(np.float32)
+    mc[1:, 3:] += rng.normal(0, 0.02, mc[1:, 3:].shape).astype(np.float32)
+    return mc
+
+
+def selfcal_solve(slam, mc_init: np.ndarray):
+    """One global BA over the system's map (the first keyframe fixed) with
+    the extrinsics of cameras 1.. free, from `mc_init`: 25 LM iterations, 40
+    PCG steps. Returns (the solved extrinsics, keyframes, observations)."""
+    s = slam.store
+    kfs = s.active_kfs()
+    prob = s.ba_problem(kfs[1:], kfs[:1])
+    params, obs, free = slam.mapper.problem_tensors(prob)
+    params = params._replace(mc=torch.as_tensor(mc_init, dtype=torch.float32, device=slam.device))
+    mc_free = torch.ones(len(mc_init), dtype=torch.bool, device=slam.device)
+    mc_free[0] = False
+    out, _ = bundle_adjust(params, obs, free._replace(mc=mc_free), max_iters=25, cg_iters=40)
+    return out.mc.cpu().numpy(), len(prob["kf_ids"]), len(prob["obs_kf"])
+
+
+def _selfcal(n_frames: int, device: torch.device) -> int:
+    """Self-calibrating BA: track a 3 m circle with the TRUE rig (oracle
+    features, which isolate the calibration), perturb the extrinsics of
+    cameras 1-2, free them in one global BA (cOptimizer.cpp:141-158 keeps
+    these vertices fixed; here they move) and report the recovered error.
+    Success: a reduction of 10x or more."""
+    world = make_world(n_points=900, n_frames=n_frames, n_cams=3, n_feats=250, noise_px=0.15,
+                       trajectory="circle_noyaw", radius=3.0, seed=3, period=n_frames)
+    rig = make_synthetic_rig(3, device=device)   # world.rig's twin, on the device
+    settings = SlamSettings(fps=10.0, extractor=ExtractorSettings(n_features=world.n_feats, n_levels=1))
+    cfg = MapConfig(max_keyframes=64, max_points=12000, n_cams=3, feats_per_cam=world.n_feats, n_levels=1)
+    slam = MultiColSLAM(rig, settings, cfg, use_loop_closing=False, device=device)
+    for t in range(n_frames):
+        slam.track(feats=world.frame_features(t, device=device), timestamp=world.timestamps[t])
+    mc_true = world.rig.Mc_cayley.numpy()
+    mc_pert = perturb_extrinsics(mc_true)
+    err0 = _mc_err(mc_pert, mc_true)
+    mc_out, nK, nO = selfcal_solve(slam, mc_pert)
+    err1 = _mc_err(mc_out, mc_true)
+    print(json.dumps({
+        "metric": "selfcal_extrinsic_error_reduction",
+        "value": round(float(err0 / max(err1, 1e-12)), 1),
+        "unit": f"x (injected {err0:.4f} -> recovered {err1:.4f} rad+m mean, {nK} KFs, {nO} obs, cams 1-2 free, "
+                f"cam0 gauge-anchored)",
+        "err_injected": round(float(err0), 5),
+        "err_recovered": round(float(err1), 5),
+        "n_keyframes": int(nK),
+        "n_obs": int(nO),
+        "platform": device.type,
+    }))
+    return 0 if err1 * 10.0 <= err0 else 1
 
 
 def lafida_settings(n_frames: int) -> str:

@@ -27,6 +27,13 @@ from multicol_slam_tpu_torch.utils.config import ExtractorSettings
 
 EDGE_BORDER = 19  # detection border (keypoint patch safety)
 
+# Version of the descriptor pipeline, recorded in map checkpoints
+# (io/checkpoint.py): descriptors extracted under another version do not
+# match a saved map's bit for bit, and relocalization into it degrades.
+#   v1: IC angles from the raw pyramid level
+#   v2: IC angles and descriptors both from the blurred level
+DESC_PIPELINE_VERSION = 2
+
 
 @dataclasses.dataclass
 class FrameFeatures:

@@ -441,7 +441,7 @@ class LocalMapper:
             anchors.append(oldest)
         return s.ba_problem(np.asarray(local), np.asarray(anchors, np.int64))
 
-    def _problem_tensors(self, prob):
+    def problem_tensors(self, prob):
         """A ba_problem dict -> (BAParams, Observations, FreeMask) on the device."""
         nK, nP, nO = len(prob["kf_ids"]), len(prob["pt_ids"]), len(prob["obs_kf"])
         params = BAParams(self._t(prob["poses"]), self._t(prob["points"]), self.mc6, self.intr)
@@ -454,7 +454,7 @@ class LocalMapper:
         return params, obs, free
 
     def _solve_ba(self, prob, max_iters: int, interrupt=None):
-        params, obs, free = self._problem_tensors(prob)
+        params, obs, free = self.problem_tensors(prob)
         gated = self.yield_gate is not None
         out, _ = bundle_adjust_interruptible(params, obs, free, max_iters=max_iters, cg_iters=16 if gated else 24,
                                              interrupt=interrupt, chunk_iters=1 if gated else 5,

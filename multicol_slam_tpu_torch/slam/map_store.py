@@ -344,6 +344,13 @@ class MapStore:
     def point_n_obs(self, p: int) -> int:
         return int(self.pt_nobs[p])
 
+    def recount_obs(self):
+        """Rebuild pt_nobs from kf_point (a loaded checkpoint does not carry it)."""
+        flat = self.kf_point[self.kf_point >= 0]
+        self.pt_nobs[:] = 0
+        if len(flat):
+            np.add.at(self.pt_nobs, flat, 1)
+
     # ---------------------------------------------------- derived structures
     def active_kfs(self) -> np.ndarray:
         return np.nonzero(self.kf_valid)[0]

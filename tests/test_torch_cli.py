@@ -8,8 +8,16 @@ tracked and the ATE of MKFTrajectoryLAFIDA.txt under 0.2 m, with
 --sync-mapping and with the async default; the async worker without
 errors and joined after shutdown; under 0.25 m with mdBRIEF's learned
 masks (the settings' extractor.usemdBRIEF and extractor.masks, and the
-eval entry's --mdbrief). Then the usage return, the flags that are not
-ported yet, and the eval entry's JSON line.
+eval entry's --mdbrief). Then the usage return and the eval entry's JSON
+line.
+
+The map flags (io/checkpoint.py), on one sync run that saves its map and
+draws the viewer's files every 10 frames: the saved file holds the live
+store at exit; --load-map --localization over frames 12-24 leaves the
+loaded map exactly as it was (no keyframe inserted); --load-map async
+resumes on the worker with the new mapper wired to it; --profile writes a
+trace of 5 frames; eval --selfcal at 40 frames reaches the reference's 10x
+(tests/test_eval_accuracy.py:100-110).
 """
 import inspect
 import json
@@ -21,6 +29,8 @@ import torch
 
 from multicol_slam_tpu_torch import cli
 from multicol_slam_tpu_torch import eval as teval
+from multicol_slam_tpu_torch import longrun
+from multicol_slam_tpu_torch.io import checkpoint, viz
 from multicol_slam_tpu_torch.io.render import write_dataset
 from multicol_slam_tpu_torch.io.synthetic import make_world
 from multicol_slam_tpu_torch.io.trajectory import ate_rmse, load_tum_trajectory
@@ -68,8 +78,23 @@ def _ate(world, path):
     return len(t), ate_rmse(t, p, world.timestamps, world.poses[:, 3:6])
 
 
-def test_sync_mapping(dataset, tmp_path, monkeypatch):
-    rc, slam, worker = _run(dataset, tmp_path, monkeypatch, "--sync-mapping", "--metrics", "m.jsonl")
+@pytest.fixture(scope="module")
+def mapped(dataset, tmp_path_factory):
+    """The sync run (--sync-mapping --metrics) with --save-map and --viz
+    every 10 frames: its exit code, the system, its worker (None), the map
+    file and the run's directory."""
+    run_dir = tmp_path_factory.mktemp("mapped")
+    mp = pytest.MonkeyPatch()
+    try:
+        rc, slam, worker = _run(dataset, run_dir, mp, "--sync-mapping", "--metrics", "m.jsonl", "--save-map",
+                                str(run_dir / "map.npz"), "--viz", str(run_dir / "viz"), "--viz-every", "10")
+    finally:
+        mp.undo()
+    return rc, slam, worker, str(run_dir / "map.npz"), run_dir
+
+
+def test_sync_mapping(dataset, mapped):
+    rc, slam, worker, _, tmp_path = mapped
     assert rc == 0 and worker is None and not slam.async_mapping
     n, ate = _ate(dataset[0], tmp_path / "MKFTrajectoryLAFIDA.txt")
     assert n >= 15 and ate < 0.2, (n, ate)
@@ -104,10 +129,80 @@ def test_usage(capsys):
     assert "Usage" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", cli.UNPORTED_FLAGS)
-def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        cli.main(["a", "b", "c", "d", flag, "x"], device="cpu")
+def test_save_map(mapped):
+    """The file holds the store as it was at exit, pt_nobs recounted equal
+    to the maintained one."""
+    _, slam, _, path, _ = mapped
+    loaded = checkpoint.load_map(path)
+    for f in checkpoint._ARRAY_FIELDS + ["pt_nobs"]:
+        np.testing.assert_array_equal(getattr(loaded, f), getattr(slam.store, f), err_msg=f)
+    assert (loaded.n_kf, loaded.n_pt_alloc, loaded._free_kf, loaded._free_pt, loaded.loop_edges) == (
+        slam.store.n_kf, slam.store.n_pt_alloc, slam.store._free_kf, slam.store._free_pt, slam.store.loop_edges)
+    assert int(loaded.kf_valid.sum()) >= 3
+
+
+def test_viz(mapped):
+    """--viz DIR --viz-every 10 over 25 frames: frames 0, 10 and 20, a frame
+    and a map artifact each (PNGs here; .npz where matplotlib is absent)."""
+    names = sorted(p.name for p in (mapped[4] / "viz").iterdir())
+    ext = ".png" if viz._mpl() is not None else ".png.npz"
+    assert names == [f"{k}_{t:06d}{ext}" for k in ("frame", "map") for t in (0, 10, 20)]
+
+
+def _resumed(dataset, mapped, tmp_path, monkeypatch, capsys, *extra, start=13, end=0):
+    """cli.main --load-map over the dataset's frames [start - 1, end - 1)."""
+    _, d = dataset
+    settings = tmp_path / "s.yaml"
+    settings.write_text(open(os.path.join(d, "Slam_Settings_synthetic.yaml")).read())
+    teval.set_yaml_keys(str(settings), {"traj.StartFrame": start, **({"traj.EndFrame": end} if end else {})})
+    made = []
+    orig = cli.MultiColSLAM
+    monkeypatch.setattr(cli, "MultiColSLAM", lambda *a, **kw: made.append(orig(*a, **kw)) or made[-1])
+    monkeypatch.chdir(tmp_path)
+    rc = cli.main(["no_voc.yml", str(settings), d, d, "--load-map", mapped[3], *extra], device="cpu")
+    return rc, made[0], capsys.readouterr().out
+
+
+def test_load_map_localization(dataset, mapped, tmp_path, monkeypatch, capsys):
+    """--load-map --localization (sync) over frames 12-24: the system
+    resumes LOST on the loaded map, re-acquires its pose in it, tracks, and
+    leaves every keyframe and point as loaded."""
+    rc, slam, out = _resumed(dataset, mapped, tmp_path, monkeypatch, capsys, "--localization", "--sync-mapping")
+    loaded = checkpoint.load_map(mapped[3])
+    assert rc == 0 and slam.map_resumed and slam.localization_only
+    assert f"resumed map: {int(loaded.kf_valid.sum())} keyframes, {int(loaded.pt_valid.sum())} points" in out
+    assert len(slam.trajectory) == 13 and not any(m.is_keyframe for m in slam.trajectory)
+    assert sum(m.state == 3 for m in slam.trajectory) >= 10
+    for f in ("kf_valid", "kf_pose", "kf_point", "pt_valid", "pt_X", "pt_desc"):
+        np.testing.assert_array_equal(getattr(slam.store, f), getattr(loaded, f), err_msg=f)
+
+
+def test_load_map_async(dataset, mapped, tmp_path, monkeypatch, capsys):
+    """--load-map with the async worker: the resumed store's mapper and
+    loop closer are the worker's (its gate and the shared lock), the run
+    ends without a worker error, the worker joined."""
+    rc, slam, out = _resumed(dataset, mapped, tmp_path, monkeypatch, capsys)
+    assert rc == 0 and slam.async_mapping and slam.map_resumed and not slam.localization_only
+    assert "resumed map:" in out and slam.worker_errors == [] and slam._worker is None
+    assert slam.mapper.store is slam.store and slam.loop_closer.store is slam.store
+    assert slam.mapper.yield_gate == slam._yield_to_tracker == slam.loop_closer.yield_gate
+    assert slam.mapper.lock is slam.map_lock and slam.loop_closer.lock is slam.map_lock
+    assert sum(m.state == 3 for m in slam.trajectory) >= 10
+
+
+def test_profile(dataset, tmp_path, monkeypatch, capsys):
+    """--profile DIR over 5 frames: a Chrome trace of the tracking loop."""
+    _, d = dataset
+    settings = tmp_path / "s.yaml"
+    settings.write_text(open(os.path.join(d, "Slam_Settings_synthetic.yaml")).read())
+    teval.set_yaml_keys(str(settings), {"traj.EndFrame": 6})
+    monkeypatch.chdir(tmp_path)
+    rc = cli.main(["no_voc.yml", str(settings), d, d, "--sync-mapping", "--profile", str(tmp_path / "prof")],
+                  device="cpu")
+    assert rc == 0 and f"profiler trace written to {tmp_path / 'prof'}" in capsys.readouterr().out
+    trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert len(trace["traceEvents"]) > 100 and any(n.startswith("aten::") for n in names)
 
 
 def test_mdbrief_masks_raise(dataset, tmp_path, monkeypatch):
@@ -130,7 +225,7 @@ def test_mdbrief_masks_raise(dataset, tmp_path, monkeypatch):
     assert n >= 15 and ate < 0.25, (n, ate)
 
 
-@pytest.mark.parametrize("fn", [cli.main, teval.main], ids=["cli", "eval"])
+@pytest.mark.parametrize("fn", [cli.main, teval.main, longrun.main], ids=["cli", "eval", "longrun"])
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -146,19 +241,39 @@ def test_eval_entry(tmp_path, capsys):
     assert r["frames_tracked"] >= 15 and r["value"] < 0.2, r
 
 
-@pytest.mark.parametrize("flag", ["--mdbrief", "--selfcal"])
+@pytest.mark.parametrize("flag", ["--mdbrief"])
 def test_eval_unported_modes_raise(flag, tmp_path, capsys):
-    """--selfcal is not ported yet and raises; --mdbrief runs the eval
-    recipe with mdBRIEF's learned masks at the reference's gates: >= 15 of
-    25 frames tracked, ATE < 0.25 m (tests/test_eval_accuracy.py:49-61)."""
-    if flag == "--selfcal":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            teval.main([flag], device="cpu")
-        return
+    """--mdbrief runs the eval recipe with mdBRIEF's learned masks at the
+    reference's gates: >= 15 of 25 frames tracked, ATE < 0.25 m
+    (tests/test_eval_accuracy.py:49-61)."""
     assert teval.main([flag, "--frames", str(N_FRAMES), "--out", str(tmp_path / "ev")], device="cpu") == 0
     r = json.loads([ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")][-1])
     assert r["metric"] == "synthetic_lafida_ate_rmse_mdbrief" and r["descriptor"] == "mdBRIEF+masks"
     assert r["frames_tracked"] >= 15 and r["value"] < 0.25, r
+
+
+def test_eval_selfcal(capsys):
+    """eval --selfcal --frames 40: the reference's gate, a 10x reduction of
+    the injected extrinsic error, and its JSON keys."""
+    assert teval.main(["--selfcal", "--frames", "40"], device="cpu") == 0
+    r = json.loads([ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")][-1])
+    assert set(r) == {"metric", "value", "unit", "err_injected", "err_recovered", "n_keyframes", "n_obs", "platform"}
+    assert r["metric"] == "selfcal_extrinsic_error_reduction" and r["value"] >= 10.0, r
+
+
+@pytest.mark.parametrize("mode, frames, expect", [
+    ("--selfcal", None, 60), ("--selfcal", 35, 35), ("--real-calib", None, 40), ("--real-calib", 35, 35),
+    (None, None, 35), (None, 20, 20)])
+def test_eval_frames_default_per_mode(mode, frames, expect, monkeypatch):
+    """Each mode's own frame count unless --frames is given, and an explicit
+    --frames 35 (the synthetic mode's default) is taken as given."""
+    seen = []
+    monkeypatch.setattr(teval, "_selfcal", lambda n, device: seen.append(n) or 0)
+    monkeypatch.setattr(teval, "_real_calib", lambda n, *a: seen.append(n) or 0)
+    monkeypatch.setattr(teval, "_synthetic", lambda n, *a: seen.append(n) or {"value": 0.0})
+    argv = ([mode] if mode else []) + (["--frames", str(frames)] if frames else [])
+    assert teval.main(argv, device="cpu") == 0
+    assert seen == [expect]
 
 
 def test_eval_real_calib_skips_without_the_files(tmp_path, capsys):

@@ -45,8 +45,9 @@ MODULES = {
     "slam/local_mapping": "slam/local_mapping", "slam/system": "slam/system", "io/trajectory": "io/trajectory",
     "models/vocab": "models/vocab", "slam/loop_closing": "slam/loop_closing",
     # the CLI and the YAML loaders (utils/config, above); the port's eval
-    # entry, whose counterpart is the repository's root eval.py
-    "cli": "cli", "eval": None,
+    # and long-run entries, whose counterparts are the repository's root
+    # eval.py and longrun.py; checkpoints and the viewer
+    "cli": "cli", "eval": None, "longrun": None, "io/checkpoint": "io/checkpoint", "io/viz": "io/viz",
 }
 
 
@@ -158,6 +159,25 @@ def test_entry_point_defaults_to_the_card(name):
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+@pytest.mark.parametrize("entry", ["cli", "eval", "longrun"])
+def test_entries_raise_without_a_card(entry, tmp_path):
+    """The command lines run on the card: without one, main() with no
+    device raises before it renders, tracks or trains anything."""
+    import importlib
+
+    from multicol_slam_tpu_torch.eval import lafida_settings
+
+    if torch.cuda.is_available():
+        return
+    settings = tmp_path / "s.yaml"
+    settings.write_text(lafida_settings(5))
+    argv = {"cli": ["no_voc.yml", str(settings), str(tmp_path), str(tmp_path)], "eval": ["--selfcal"],
+            "longrun": ["--frames", "5", "--out", str(tmp_path / "l.jsonl")]}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        importlib.import_module(f"multicol_slam_tpu_torch.{entry}").main(argv)
+    assert not (tmp_path / "l.jsonl").exists()
 
 
 def test_host_fixtures_build_on_the_cpu():
