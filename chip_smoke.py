@@ -2,7 +2,8 @@
 """Drive the PyTorch port's tracking step, map bootstrap, system (sync and
 async), loop closing, CLI and eval entry, with ORB and with mdBRIEF's
 learned masks, map checkpoint and resume, localization mode, the viewer,
-the profiler, self-calibrating BA and the long run, on one CUDA card.
+the profiler, self-calibrating BA, the long run and the large-map BA with
+its distributed layouts, on one CUDA card.
 
     python3 chip_smoke.py [--reloc-dump NPZ]
 
@@ -141,15 +142,30 @@ Phases, each reported on its own lines:
      `python3 -m multicol_slam_tpu_torch.longrun --frames 100` (the full
      run's first 100 frames: no exception, >= 90 % tracked; their K1
      launches are not counted here).
+ 18. large BA (C6): make_large_ba_problem's default (64 keyframes, 50k
+     points, 500k rows) sorted by point id, 10 LM iterations of 20 PCG steps
+     (gain_eps 0): (a) lm_solve on the card, LM iterations/s (median of 3
+     timed runs after a warm one), the final cost within 1 % of the JAX
+     package's on the CPU (tests/torch_large_ba_reference.py), one LM
+     iteration under torch.profiler (kernels, device time, busy share);
+     (b) a world of one rank over NCCL: distributed_bundle_adjust
+     bit-identical to (a), point_sharded_bundle_adjust within 1e-5, each one's
+     iterations/s; (c) two ranks on the one card over gloo with CUDA tensors
+     (tests/torch_multihost_worker.py): tests/test_multihost.py's problem
+     through multihost_bundle_adjust and point_sharded_bundle_adjust, both
+     ranks bit-identical, poses within 5e-3 of the single-device solve and
+     2e-2 of the ground truth; (d) __graft_entry__.dryrun_multichip's asserts
+     in (c)'s group. No kernel of the port's own runs here (the reference's
+     distributed BA is jnp and psum).
 Each time stands beside two bounds: the bytes at the HBM rate against the
 products of the P pairs that pass at the int8 tensor-core peak (what this
 run's data needs), and the dense one that counts every pair, as the TPU
 kernel computes them.
 Then one JSON line of kernels, and last {"ok": true, "device": {...}}.
 The order of the run: 1-5, 6-7, 10, 11 (14, 15's eval, 17 and 13's
-dataset beside it), 12, 13, 15, 16, then 8 and 9 on the captured launches
-(the worker-stream fusion launches of 12, 13 and 15 among them). Every
-phase runs before a failed gate of 12-17 raises.
+dataset beside it), 12, 13, 15, 16, 18, then 8 and 9 on the captured
+launches (the worker-stream fusion launches of 12, 13 and 15 among them).
+Every phase runs before a failed gate of 12-18 raises.
 Any failure raises and exits non-zero. Needs one card; no CPU fallback.
 """
 import json
@@ -2226,6 +2242,182 @@ def phase_resume(card, world, dataset, map_path, live):
     return out, failed
 
 
+# phase 18, the large-map BA (C6): make_large_ba_problem's default, as
+# bench_ba.py times it (sorted by point id, 10 LM iterations of 20 PCG steps,
+# gain_eps=0 so that every iteration runs, the rig fixed). The JAX package's
+# final cost on the CPU (tests/torch_large_ba_reference.py) and the gates.
+LARGE_BA = dict(n_kfs=64, n_points=50_000, n_obs=500_000, seed=0)
+LARGE_BA_ITERS, LARGE_BA_CG = 10, 20
+LARGE_BA_TIMED = 3
+LARGE_BA_JAX_COST = 212558.140625
+LARGE_BA_COST_GATE = 0.01          # relative, against LARGE_BA_JAX_COST
+LARGE_BA_SHARDED_REL = 1e-5        # the point-sharded world of one against the single solve
+MH_POSE_TOL = 5e-3                 # tests/test_multihost.py:65
+MH_GT_GATE = 2e-2                  # tests/test_multihost.py:68-71
+MH_TIMEOUT = 300
+
+
+def rank_worker():
+    """tests/torch_multihost_worker.py, loaded from its path (a `tests`
+    package installed elsewhere may shadow the repository's directory)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_multihost_worker.py")
+    spec = importlib.util.spec_from_file_location("torch_multihost_worker", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def synced_s(fn):
+    """(fn(), seconds on the host clock between two synchronisations)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def lm_rate(fn):
+    """One warm run, then LARGE_BA_TIMED timed ones: (the warm run's output,
+    the timed runs' seconds, their outputs all equal to the warm one's)."""
+    import torch
+
+    ref, _ = synced_s(fn)
+    runs = [synced_s(fn) for _ in range(LARGE_BA_TIMED)]
+    same = all(all(torch.equal(a, b) for a, b in zip(out[0], ref[0])) and torch.equal(out[1], ref[1])
+               for out, _ in runs)
+    return ref, [s for _, s in runs], same
+
+
+def rel_diff(a, b):
+    return max(float((x - y).abs().max() / y.abs().max().clamp_min(1e-30)) for x, y in zip(a, b))
+
+
+def phase_large_ba(dev, card, tmp):
+    """Phase 18 (C6). (a) lm_solve on the card at 64 keyframes / 50k points /
+    500k rows: LM iterations/s (median of LARGE_BA_TIMED runs after a warm
+    one), the final cost within 1 % of the JAX package's on the CPU, one LM
+    iteration under torch.profiler; (b) a world of one rank over NCCL in
+    this process: distributed_bundle_adjust bit-identical to (a),
+    point_sharded_bundle_adjust within 1e-5, each one's iterations/s; (c)
+    two ranks on the one card over gloo with CUDA tensors
+    (tests/torch_multihost_worker.py): the multihost test's problem through
+    multihost_bundle_adjust and point_sharded_bundle_adjust, both ranks
+    bit-identical, poses within 5e-3 of the single-device solve and 2e-2 of
+    the ground truth; (d) in (c)'s group, the reference's dry-run asserts.
+    Returns (results, failures)."""
+    import torch
+    import torch.distributed as dist
+
+    from multicol_slam_tpu_torch.optim.lm import LMConfig, lm_solve
+    from multicol_slam_tpu_torch.parallel.ba import distributed_bundle_adjust, make_mesh, point_sharded_bundle_adjust
+    from multicol_slam_tpu_torch.parallel.distributed import init_distributed, make_large_ba_problem
+
+    worker = rank_worker()
+    failed, out = [], {}
+    t0 = time.perf_counter()
+    noisy, _, obs, free = make_large_ba_problem(**LARGE_BA, device="cpu")
+    order = torch.argsort(obs.pt, stable=True)                      # bench_ba.py:63-64
+    obs = type(obs)(*(c[order] for c in obs))
+    noisy, obs, free = (type(t)(*(x.to(dev) if torch.is_tensor(x) else x for x in t)) for t in (noisy, obs, free))
+    cfg = LMConfig(max_iters=LARGE_BA_ITERS, cg_iters=LARGE_BA_CG, gain_eps=0.0)
+    log(f"large BA: make_large_ba_problem({LARGE_BA}) on the host, sorted by point id, on the card in "
+        f"{time.perf_counter() - t0:.2f} s: {noisy.poses.shape[0]} keyframes, {noisy.points.shape[0]} points, "
+        f"{obs.kf.shape[0]} rows ({int(obs.valid.sum())} valid); {LARGE_BA_ITERS} LM iterations of {LARGE_BA_CG} "
+        f"PCG steps, gain_eps 0")
+
+    (ref, cost), secs, same = lm_rate(lambda: lm_solve(noisy, obs, free, cfg))
+    rate = LARGE_BA_ITERS / float(np.median(secs))
+    rel = float(cost) / LARGE_BA_JAX_COST - 1.0
+    log(f"large BA: (a) lm_solve: {rate:.3f} LM iterations/s (median of {LARGE_BA_TIMED} runs: "
+        f"{', '.join(f'{s:.4f}' for s in secs)} s for {LARGE_BA_ITERS}); final cost {float(cost)!r} (the JAX package "
+        f"on the CPU {LARGE_BA_JAX_COST!r}: {rel:+.3e}, gate {LARGE_BA_COST_GATE:.0%}); runs equal to the warm one: "
+        f"{same}; peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
+    if not abs(rel) <= LARGE_BA_COST_GATE or not all(torch.isfinite(x).all() for x in ref):
+        failed.append(f"large BA (a): final cost {float(cost)} against {LARGE_BA_JAX_COST} ({rel:+.3e})")
+    out["single"] = dict(its_per_s=rate, seconds=secs, cost=float(cost), cost_rel_jax=rel, runs_equal=same)
+
+    one = cfg._replace(max_iters=1)
+    lm_solve(noisy, obs, free, one)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        lm_solve(noisy, obs, free, one)
+        torch.cuda.synchronize()
+    path = os.path.join(tmp, "large_ba_trace.json")
+    prof.export_chrome_trace(path)
+    busy = trace_busy(path)
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:6]
+    log(f"large BA: (a) one LM iteration under torch.profiler ({LARGE_BA_CG} PCG steps, the segments' sort and the "
+        f"starting cost included): {busy['kernels']} CUDA kernels, kernel time {busy['kernel_ms']:.3f} ms of "
+        f"{busy['wall_ms']:.3f} ms wall, device-busy share {busy['busy_share']:.4f}; by device time: "
+        + "; ".join(f"{e.key} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top) + f" [{card}]")
+    out["profile"] = busy
+
+    init_distributed(f"127.0.0.1:{worker.free_port()}", 1, 0, device=dev)
+    try:
+        mesh = make_mesh(1, device=dev)
+        backend = dist.get_backend()
+        (rows, rows_cost), rows_s, rows_same = lm_rate(lambda: distributed_bundle_adjust(noisy, obs, free, mesh, cfg))
+        (pts, pts_cost), pts_s, pts_same = lm_rate(lambda: point_sharded_bundle_adjust(noisy, obs, free, mesh, cfg))
+    finally:
+        dist.destroy_process_group()
+    rows_rate = LARGE_BA_ITERS / float(np.median(rows_s))
+    pts_rate = LARGE_BA_ITERS / float(np.median(pts_s))
+    rows_equal = all(torch.equal(a, b) for a, b in zip(rows, ref)) and torch.equal(rows_cost, cost)
+    pts_rel = max(rel_diff(pts, ref), abs(float(pts_cost) / float(cost) - 1.0))
+    log(f"large BA: (b) a world of one rank over {backend}: distributed_bundle_adjust {rows_rate:.3f} LM "
+        f"iterations/s ({', '.join(f'{s:.4f}' for s in rows_s)} s), bit-identical to (a): {rows_equal}; "
+        f"point_sharded_bundle_adjust {pts_rate:.3f} LM iterations/s ({', '.join(f'{s:.4f}' for s in pts_s)} s), "
+        f"relative difference to (a) {pts_rel:.3e} (gate {LARGE_BA_SHARDED_REL}); (a) {rate:.3f}: the collectives "
+        f"cost {1e3 / rows_rate - 1e3 / rate:+.3f} / {1e3 / pts_rate - 1e3 / rate:+.3f} ms an LM iteration [{card}]")
+    if backend != "nccl" or not rows_equal or not pts_rel <= LARGE_BA_SHARDED_REL or not (rows_same and pts_same):
+        failed.append(f"large BA (b): backend {backend}, rows bit-identical {rows_equal}, point-sharded "
+                      f"{pts_rel:.3e}, repeat runs equal {rows_same} / {pts_same}")
+    out["world1"] = dict(backend=backend, rows_its_per_s=rows_rate, rows_seconds=rows_s, rows_bit_identical=rows_equal,
+                         points_its_per_s=pts_rate, points_seconds=pts_s, points_rel=pts_rel)
+
+    t0 = time.perf_counter()
+    try:
+        ranks = worker.run_ranks(2, "large,dryrun", os.path.join(tmp, "ranks"), device="cuda", backend="gloo",
+                          timeout=MH_TIMEOUT)
+    except RuntimeError as e:
+        failed.append(f"large BA (c): {e}")
+        return out, failed
+    a, b = ranks
+    bad = [k for k, v in a.items() if k.endswith(("poses", "points", "cost")) and k in b and not np.array_equal(v, b[k])]
+    res = {}
+    for layout in ("multihost", "points"):
+        p = a[f"0/{layout}/poses"]
+        res[layout] = dict(single=float(np.abs(p - a["0/single/poses"]).max()),
+                           gt=float(np.abs(p - a["0/gt_poses"]).max()), s=float(a[f"0/{layout}/s"]),
+                           cost=float(a[f"0/{layout}/cost"]))
+    dry = {layout: dict(cost=float(a[f"1/{layout}/cost"]),
+                        err=max(float(np.abs(a[f"1/{layout}/{k}"] - a[f"1/single/{k}"]).max())
+                                for k in ("poses", "points"))) for layout in ("rows", "points")}
+    log(f"large BA: (c) two ranks on the one card over {a['backend']} ({a['device']}), "
+        f"{time.perf_counter() - t0:.1f} s with start-up: the multihost test's problem, 10 LM iterations: "
+        + "; ".join(f"{k} pose error {v['single']:.3e} to the single solve, {v['gt']:.3e} to the ground truth, "
+                    f"{v['s']:.3f} s" for k, v in res.items())
+        + f"; ranks bit-identical: {not bad} {bad or ''}")
+    log(f"large BA: (d) the dry run in (c)'s group: cost {float(a['1/cost0']):.4f} -> "
+        + "; ".join(f"{k} {v['cost']:.6f} (max difference to the single solve {v['err']:.3e})" for k, v in dry.items()))
+    if str(a["backend"]) != "gloo" or not str(a["device"]).startswith("cuda") or bad:
+        failed.append(f"large BA (c): backend {a['backend']}, device {a['device']}, ranks differ on {bad}")
+    for k, v in res.items():
+        if not (v["single"] <= MH_POSE_TOL and v["gt"] < MH_GT_GATE and np.isfinite(v["cost"])):
+            failed.append(f"large BA (c) {k}: {v}")
+    for k, v in dry.items():
+        if not (v["cost"] < 0.5 * float(a["1/cost0"]) and v["err"] <= MH_POSE_TOL):
+            failed.append(f"large BA (d) {k}: {v}, cost0 {float(a['1/cost0'])}")
+    out["two_ranks"] = dict(backend=str(a["backend"]), layouts=res, dryrun=dry, bit_identical=not bad)
+    log(f"large BA: {json.dumps(out)}")
+    return out, failed
+
+
 def main(argv=None):
     import argparse
 
@@ -2275,7 +2467,8 @@ def main(argv=None):
         p17, failed_17 = phase_selfcal_longrun(loop["beside"], card)
         md, failed_md, md_captured = phase_mdbrief(dev, boot, card, loop["beside"]["dataset"])
         resume, failed_resume = phase_resume(card, boot[0], loop["beside"]["dataset"], map_path, cli_sync.store)
-        failed += failed_cli + failed_eval + failed_17 + failed_md + failed_resume
+        _, failed_18 = phase_large_ba(dev, card, tmp)
+        failed += failed_cli + failed_eval + failed_17 + failed_md + failed_resume + failed_18
         if loop["beside"]["writer_rc"] != 0:
             failed.append(f"the CLI dataset's writer exited with {loop['beside']['writer_rc']}")
         worker_rows = [(name, a) for name, a in (("CLI async fusion, worker stream", worker_cli),

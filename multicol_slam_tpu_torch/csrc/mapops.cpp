@@ -42,6 +42,28 @@ void covisibility_counts2(const int32_t* kf_point, const uint8_t* kf_valid,
   }
 }
 
+// n_obs[i] = number of slots of valid keyframes observing pt_ids[i] (ids
+// unique and >= 0; a repeated id counts at its last position only).
+void count_observations(const int32_t* kf_point, const uint8_t* kf_valid,
+                        int64_t K, int64_t F,
+                        const int32_t* pt_ids, int64_t n_pts,
+                        int32_t* n_obs /* [n_pts] out */) {
+  int32_t max_id = -1;
+  for (int64_t i = 0; i < n_pts; ++i)
+    if (pt_ids[i] > max_id) max_id = pt_ids[i];
+  std::vector<int32_t> lut((size_t)max_id + 1, -1);
+  for (int64_t i = 0; i < n_pts; ++i) lut[pt_ids[i]] = (int32_t)i;
+  std::memset(n_obs, 0, sizeof(int32_t) * (size_t)n_pts);
+  for (int64_t j = 0; j < K; ++j) {
+    if (!kf_valid[j]) continue;
+    const int32_t* row = kf_point + j * F;
+    for (int64_t f = 0; f < F; ++f) {
+      int32_t p = row[f];
+      if (p >= 0 && p <= max_id && lut[p] >= 0) ++n_obs[lut[p]];
+    }
+  }
+}
+
 // For keyframe culling (cLocalMapping.cpp:520-597): for every feature slot
 // g of keyframe j with a map point, the number of slots of OTHER valid
 // keyframes observing the same point at octave <= octave(j, g) + 1.

@@ -36,6 +36,10 @@ class OmniCamera(nn.Module):
         self.register_buffer("pp", pp)
         self.register_buffer("wh", wh)
 
+    @property
+    def n_cams(self) -> int:
+        return self.pol.shape[0]
+
     @classmethod
     def from_params(cls, pol_list, invpol_list, cde_list, pp_list, wh_list,
                     device=DEFAULT_DEVICE, dtype=torch.float32):
@@ -113,6 +117,20 @@ def cam_img_to_world(cam: OmniCamera, cam_idx, uv: torch.Tensor) -> torch.Tensor
     return img_to_world(cam.pol[cam_idx], cam.cde[cam_idx], cam.pp[cam_idx], uv)
 
 
+def rig_world_to_img(cam: OmniCamera, X: torch.Tensor) -> torch.Tensor:
+    """Project per-camera batches: X [C, ..., 3] -> uv [C, ..., 2]."""
+    shape = (cam.n_cams,) + (1,) * (X.dim() - 2)
+    return world_to_img(cam.invpol.reshape(shape + (MAX_INVPOL,)), cam.cde.reshape(shape + (3,)),
+                        cam.pp.reshape(shape + (2,)), X)
+
+
+def rig_img_to_world(cam: OmniCamera, uv: torch.Tensor) -> torch.Tensor:
+    """Unproject per-camera batches: uv [C, ..., 2] -> rays [C, ..., 3]."""
+    shape = (cam.n_cams,) + (1,) * (uv.dim() - 2)
+    return img_to_world(cam.pol.reshape(shape + (MAX_POL,)), cam.cde.reshape(shape + (3,)),
+                        cam.pp.reshape(shape + (2,)), uv)
+
+
 def in_mirror_mask(cam: OmniCamera, cam_idx, uv: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
     """Analytic mirror-mask test: inside the image and inside the circle of
     radius (v0 + 22) * scale around the scaled principal point. `scale` is the
@@ -144,6 +162,22 @@ def mirror_mask_grid(cam: OmniCamera, h: int, w: int, scale: float = 1.0) -> tor
     du, dv = xx - u0, yy - v0
     rad = (cam.pp[:, 1, None, None] + MIRROR_OFFSETS[0]) * scale
     return inside & (du * du + dv * dv < rad * rad)
+
+
+def mirror_mask_raster(cam: OmniCamera, cam_idx: int, n_levels: int):
+    """Boolean mirror masks of one camera, one [h, w] numpy array a pyramid
+    level (CreateMirrorMask, cam_model_omni.cpp:183-222: halved sizes and
+    principal point, offsets 22 / 10 / 5 / 1). Host-side."""
+    w, h = (int(x) for x in cam.wh[cam_idx].cpu().numpy())
+    u0, v0 = (float(x) for x in cam.pp[cam_idx].cpu().numpy())
+    masks = []
+    for lvl in range(n_levels):
+        if lvl > 0:
+            w, h = (w + 1) // 2, (h + 1) // 2
+            u0, v0 = np.ceil(u0 / 2.0), np.ceil(v0 / 2.0)
+        jj, ii = np.meshgrid(np.arange(w), np.arange(h))
+        masks.append(np.sqrt((ii - v0) ** 2 + (jj - u0) ** 2) < (v0 + MIRROR_OFFSETS[min(lvl, 3)]))
+    return masks
 
 
 def fit_inverse_poly(pol, rho_max: float, deg: int = 12) -> np.ndarray:

@@ -31,6 +31,7 @@ _ARGTYPES = {
     "redundancy_counts_fast": ([_i32p, _i32p, _u8p, _i64, _i64, _i64, _i32p], None),
     "vote_counts": ([_i32p, _u8p, _i64, _i64, _u8p, _i64, _i32p], None),
     "find_slots": ([_i32p, _u8p, _i64, _i64, _u8p, _i64, _i32p, _i32p, _i32p, _i64], _i64),
+    "count_observations": ([_i32p, _u8p, _i64, _i64, _i32p, _i64, _i32p], None),
 }
 
 
@@ -76,6 +77,15 @@ class _Library:
 _LIBRARY = _Library()
 
 
+def available() -> bool:
+    """True when the library builds and loads (g++ present)."""
+    try:
+        _LIBRARY.get()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return False
+    return True
+
+
 def _table(kf_point, kf_valid):
     return np.ascontiguousarray(kf_point, np.int32), np.ascontiguousarray(kf_valid, np.uint8)
 
@@ -105,6 +115,25 @@ def covisibility_counts_plain(kf_point, kf_valid, k: int, n_points: int) -> np.n
     counts[k] = 0
     counts[~kf_valid.astype(bool)] = 0
     return counts
+
+
+def count_observations(kf_point: np.ndarray, kf_valid: np.ndarray, pt_ids: np.ndarray) -> np.ndarray:
+    """n_obs[i] = slots of valid keyframes observing pt_ids[i] (unique ids
+    >= 0)."""
+    K, F = kf_point.shape
+    pt_ids = np.ascontiguousarray(pt_ids, np.int32)
+    out = np.zeros(len(pt_ids), np.int32)
+    if len(pt_ids):
+        _LIBRARY.get().count_observations(*_table(kf_point, kf_valid), K, F, pt_ids, len(pt_ids), out)
+    return out
+
+
+def count_observations_plain(kf_point, kf_valid, pt_ids) -> np.ndarray:
+    pt_ids = np.asarray(pt_ids, np.int64)
+    vp = kf_point[kf_valid.astype(bool)]
+    flat = vp[vp >= 0]
+    counts = np.bincount(flat, minlength=int(pt_ids.max(initial=-1)) + 1)
+    return counts[pt_ids].astype(np.int32)
 
 
 def vote_counts(kf_point: np.ndarray, kf_valid: np.ndarray, seed_pts: np.ndarray,

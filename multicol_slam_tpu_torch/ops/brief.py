@@ -64,6 +64,25 @@ def gather_sample_patches(img: torch.Tensor, centers: torch.Tensor):
     return patches, r0, c0
 
 
+def ic_angles(img: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid orientation (IC_Angle, mdBRIEFextractorOct.cpp:221-247):
+    atan2(m01, m10) over the radius-15 circle around each keypoint, the
+    31x31 window clamped to the image. img [..., H, W] (H, W >= 47);
+    centers [..., K, 2] int (u, v) -> [..., K] radians."""
+    wx, wy, _ = (torch.as_tensor(a, device=img.device) for a in _ic_angle_weights())
+    patches, r0, c0 = gather_sample_patches(img, centers)
+    return ic_angles_from_patches(patches, centers, r0, c0, wx, wy)
+
+
+def ic_angles_dense(imgs: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """`ic_angles` of every camera: imgs [C, H, W], centers [C, K, 2] ->
+    [C, K]. The reference computes it as a convolution with zero padding
+    (a TPU device); the values agree with ic_angles but for keypoints within
+    15 px of the border, which the detector's 19 px border excludes; here
+    the window is clamped there, as ic_angles clamps it."""
+    return ic_angles(imgs, centers)
+
+
 def ic_angles_from_patches(patches, centers, r0, c0, wx: torch.Tensor, wy: torch.Tensor) -> torch.Tensor:
     """atan2(m01, m10) over the 31x31 window around each keypoint inside its
     sample patch (window clamped to the patch). wx, wy: `_ic_angle_weights`."""
@@ -110,6 +129,14 @@ def compute_orb_from_patches(patches, centers, r0, c0, angles, pattern: torch.Te
     """ORB descriptors [..., K, B] uint8; bit i is t0 < t1 of pair i of the
     rotated `pattern` ([16 B, 2] int32, `brief_pattern(16 B)`)."""
     return _pack_bits(_tests(patches, centers, _rotated_offsets(pattern, angles), r0, c0))
+
+
+def compute_orb(img: torch.Tensor, centers: torch.Tensor, angles: torch.Tensor, desc_bytes: int = 32) -> torch.Tensor:
+    """Steered BRIEF (ORB) on one (blurred) level image: img [..., H, W];
+    centers [..., K, 2] int; angles [..., K] -> [..., K, desc_bytes] uint8."""
+    pattern = torch.as_tensor(brief_pattern(2 * 8 * desc_bytes), device=img.device)
+    patches, r0, c0 = gather_sample_patches(img, centers)
+    return compute_orb_from_patches(patches, centers, r0, c0, angles, pattern)
 
 
 def undistort_keypoints(pol, cde, pp, a0, uv_level0: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,11 @@ def pyramid_shapes(h: int, w: int, n_levels: int, scale_factor: float) -> List[T
     return shapes
 
 
+def scale_factors(n_levels: int, scale_factor: float) -> np.ndarray:
+    """mvScaleFactor: [1, s, s^2, ...] (mdBRIEFextractorOct.cpp:156)."""
+    return scale_factor ** np.arange(n_levels)
+
+
 def resize_weights(in_size: int, out_size: int) -> np.ndarray:
     """[in_size, out_size] float32 weights of JAX's antialiased linear resize
     along one axis (jax._src.image.scale.compute_weight_mat, triangle kernel,

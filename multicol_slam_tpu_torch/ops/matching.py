@@ -1,6 +1,5 @@
 """Dense Hamming distances between binary descriptors, and the match
-filters (port of `multicol_slam_tpu/ops/matching.py`, the parts the
-tracking step and the map bootstrap need).
+filters (port of `multicol_slam_tpu/ops/matching.py`).
 
 Descriptors unpack to +-1 vectors and ham = (nbits - a.b) / 2. The products
 are float32: +-1 dot products are integers up to 512 in magnitude, so the
@@ -10,8 +9,11 @@ halved for the masked (mdBRIEF) distance.
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
+
+BIG = 1e9   # "no candidate"
 
 
 def th_high(desc_bytes: int, masked: bool = False) -> float:
@@ -54,6 +56,48 @@ def hamming_matrix_masked(desc_q, mask_q, desc_t, mask_t) -> torch.Tensor:
     sum_q = mq.sum(-1)[..., :, None]
     sum_t = mt.sum(-1)[..., None, :]
     return 0.25 * ((sum_q - dot_q) + (sum_t - dot_t))
+
+
+def masked_best_match(dist: torch.Tensor, mask: torch.Tensor, max_dist: float,
+                      ratio: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Row-wise best match under a candidate mask, with the optional Lowe
+    ratio best < ratio * second best (the 0.9 / 0.8 tests, cTracking.cpp:410,
+    733; cLocalMapping.cpp:161). dist [Q, T]; mask [Q, T] bool. Returns
+    (idx [Q] int32, best [Q], ok [Q]); ties go to the lowest t."""
+    d = torch.where(mask, dist, torch.full_like(dist, BIG))
+    idx = torch.argmin(d, dim=1)
+    best = torch.gather(d, 1, idx[:, None])[:, 0]
+    ok = best <= max_dist
+    if ratio is not None:
+        second = d.scatter(1, idx[:, None], BIG).min(dim=1).values
+        ok = ok & (best < ratio * second)
+    return idx.to(torch.int32), best, ok
+
+
+def resolve_duplicate_targets(idx: torch.Tensor, dist: torch.Tensor, ok: torch.Tensor, n_targets: int) -> torch.Tensor:
+    """One query per target: where several queries claim a target, keep the
+    ones at its smallest distance (the reference's bestDist bookkeeping when
+    filling mvpMapPoints). Returns the updated ok [Q]."""
+    d = torch.where(ok, dist, torch.full_like(dist, BIG))
+    tmin = torch.full((n_targets,), BIG, dtype=d.dtype, device=d.device)
+    tmin = tmin.scatter_reduce(0, idx.long(), d, reduce="amin")
+    return ok & (d <= tmin[idx.long()])
+
+
+def window_mask(uv_q: torch.Tensor, uv_t: torch.Tensor, radius, octave_q: Optional[torch.Tensor] = None,
+                octave_t: Optional[torch.Tensor] = None, level_tol: Optional[int] = None) -> torch.Tensor:
+    """Spatial window [Q, T]: |u_q - u_t| <= r and |v_q - v_t| <= r (a
+    scalar radius or one per query), and |octave_q - octave_t| <= level_tol
+    when given: the dense GetFeaturesInArea (cMultiFrame.cpp:272-340)."""
+    r = torch.as_tensor(radius, dtype=uv_q.dtype, device=uv_q.device)
+    if r.dim() == 1:
+        r = r[:, None]
+    du = torch.abs(uv_q[:, None, 0] - uv_t[None, :, 0])
+    dv = torch.abs(uv_q[:, None, 1] - uv_t[None, :, 1])
+    m = (du <= r) & (dv <= r)
+    if octave_q is not None and level_tol is not None:
+        m = m & (torch.abs(octave_q[:, None] - octave_t[None, :]) <= level_tol)
+    return m
 
 
 def mutual_filter(idx_qt: torch.Tensor, ok_q: torch.Tensor, idx_tq: torch.Tensor) -> torch.Tensor:

@@ -18,10 +18,22 @@ CUDA adds in atomic order, and a SLAM run amplifies the last bits).
 The reference's `lax.while_loop`s stop early. Here the host reads the
 `done` flag once per chunk of iterations; an iteration run after `done` is
 a no-op (`torch.where`), so a chunked solve returns what the loop returns.
+
+Distributed BA (`parallel/`): the counterpart of the reference's
+`axis_name` is a *reducer*, a callable that sums a tensor across ranks in
+place (`parallel.distributed.all_reduce_sum` wraps
+`torch.distributed.all_reduce`). `None` means one device. The reduction
+sites are the reference's psums: the gradient with the block diagonals,
+each Hessian-vector product before its damping term, the robust cost, and
+with `LMConfig.points_sharded` the point term of each inner product. Each
+site packs its pieces into one flat buffer and reduces it with one call
+(the sums are elementwise, so the values are those of a psum per piece).
+`done` derives from reduced values only, so every rank takes the same
+branch.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +52,31 @@ class LMConfig(NamedTuple):
     gain_eps: float = 1e-6       # terminate-action gain threshold
     lambda_up: float = 4.0
     lambda_down: float = 0.5
+    # The distributed layout (meaningful with a reducer). False: observation
+    # rows shard, everything else replicates, and every segment sum is
+    # reduced. True: points and the rows that observe them co-shard (obs.pt
+    # holds LOCAL indices), so the point blocks V, g_pt and h_pt stay on
+    # their rank; the pose and rig blocks and the point term of each inner
+    # product are reduced.
+    points_sharded: bool = False
+    # The reference's solve_mc / solve_intr have no field here: the rig's
+    # Jacobian blocks follow `FreeMask.mc` / `FreeMask.intr` (the default
+    # FreeMask(mc=False, intr=False) is solve_mc=False, solve_intr=False).
+
+
+# sums a tensor across ranks in place; None: one device
+Reducer = Optional[Callable[[torch.Tensor], None]]
+
+
+def _reduce(reducer: Reducer, *parts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """`parts` summed across ranks with one call of `reducer`: packed into
+    one flat buffer, reduced in place, split back. Without a reducer, the
+    parts as they are."""
+    if reducer is None:
+        return parts
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    reducer(flat)
+    return tuple(c.view_as(p) for c, p in zip(torch.split(flat, [p.numel() for p in parts]), parts))
 
 
 class Segments(NamedTuple):
@@ -92,9 +129,14 @@ def _mask_params(d: BAParams, free: FreeMask) -> BAParams:
                     cams(free.mc, d.mc), cams(free.intr, d.intr))
 
 
-def _dot(a: BAParams, b: BAParams) -> torch.Tensor:
-    return (torch.sum(a.poses * b.poses) + torch.sum(a.points * b.points)
-            + torch.sum(a.mc * b.mc) + torch.sum(a.intr * b.intr))
+def _dot(a: BAParams, b: BAParams, reducer: Reducer = None, points_sharded: bool = False) -> torch.Tensor:
+    """Inner product over the parameters. With points sharded the point term
+    is a partial sum and is reduced; the replicated terms are not (they are
+    equal on every rank)."""
+    pt = torch.sum(a.points * b.points)
+    if points_sharded:
+        pt, = _reduce(reducer, pt)
+    return torch.sum(a.poses * b.poses) + pt + torch.sum(a.mc * b.mc) + torch.sum(a.intr * b.intr)
 
 
 def _axpy(alpha, x: BAParams, y: BAParams) -> BAParams:
@@ -106,9 +148,11 @@ def _outer(J: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("oia,o,oib->oab", J, w, J).reshape(J.shape[0], -1)
 
 
-def _build_grad_and_blocks(params: BAParams, seg: Segments, Jp, Jx, Jm, Ji, w, r):
+def _build_grad_and_blocks(params: BAParams, seg: Segments, Jp, Jx, Jm, Ji, w, r,
+                           reducer: Reducer = None, points_sharded: bool = False):
     """RHS g = -J^T W r (r = measured - predicted) and the block diagonals
-    U_k (poses), V_p (points), Um_c, Ui_c (rig)."""
+    U_k (poses), V_p (points), Um_c, Ui_c (rig), reduced across ranks in one
+    buffer (without the point pieces when points are sharded)."""
     K, P = params.poses.shape[0], params.points.shape[0]
     C, Di = params.mc.shape[0], params.intr.shape[1]
     wr = -(w[:, None] * r)                                   # [O, 2]
@@ -128,6 +172,10 @@ def _build_grad_and_blocks(params: BAParams, seg: Segments, Jp, Jx, Jm, Ji, w, r
     else:
         g_intr = params.intr.new_zeros((C, Di))
         Ui = params.intr.new_zeros((C, Di, Di))
+    if points_sharded:
+        g_pose, g_mc, g_intr, U, Um, Ui = _reduce(reducer, g_pose, g_mc, g_intr, U, Um, Ui)
+    else:
+        g_pose, g_pt, g_mc, g_intr, U, V, Um, Ui = _reduce(reducer, g_pose, g_pt, g_mc, g_intr, U, V, Um, Ui)
     return BAParams(g_pose, g_pt, g_mc, g_intr), (U, V, Um, Ui)
 
 
@@ -137,8 +185,10 @@ def _damped_diag(B: torch.Tensor) -> torch.Tensor:
 
 
 def _hvp(obs: Observations, seg: Segments, Jp, Jx, Jm, Ji, w, lam, blocks, free: FreeMask,
-         v: BAParams) -> BAParams:
-    """(J^T W J + lam * diag(blocks)) v."""
+         v: BAParams, reducer: Reducer = None, points_sharded: bool = False) -> BAParams:
+    """(J^T W J + lam * diag(blocks)) v. The partial sums over this rank's
+    rows are reduced in one buffer before the damping term, whose blocks
+    are reduced already."""
     v = _mask_params(v, free)
     jv = (torch.einsum("oij,oj->oi", Jp, v.poses[obs.kf])
           + torch.einsum("oij,oj->oi", Jx, v.points[obs.pt]))
@@ -153,6 +203,10 @@ def _hvp(obs: Observations, seg: Segments, Jp, Jx, Jm, Ji, w, lam, blocks, free:
         else torch.zeros_like(v.mc)
     h_intr = _segsum(torch.einsum("oij,oi->oj", Ji, wjv), seg.cam) if Ji is not None \
         else torch.zeros_like(v.intr)
+    if points_sharded:
+        h_pose, h_mc, h_intr = _reduce(reducer, h_pose, h_mc, h_intr)
+    else:
+        h_pose, h_pt, h_mc, h_intr = _reduce(reducer, h_pose, h_pt, h_mc, h_intr)
     U, V, Um, Ui = blocks
     h = BAParams(h_pose + lam * (_damped_diag(U) * v.poses), h_pt + lam * (_damped_diag(V) * v.points),
                  h_mc + lam * (_damped_diag(Um) * v.mc), h_intr + lam * (_damped_diag(Ui) * v.intr))
@@ -188,20 +242,22 @@ def _precond_apply(Minv, free: FreeMask, g: BAParams) -> BAParams:
 
 
 def _pcg(obs, seg, Jp, Jx, Jm, Ji, w, lam, blocks, Minv, free: FreeMask, g: BAParams,
-         n_iters: int) -> BAParams:
-    """Preconditioned CG for (H + lam D) delta = g, a fixed n_iters."""
+         n_iters: int, reducer: Reducer = None, points_sharded: bool = False) -> BAParams:
+    """Preconditioned CG for (H + lam D) delta = g, a fixed n_iters. g,
+    blocks and Minv are replicated (the point parts rank-local when points
+    are sharded); each Hessian-vector product reduces its row sums."""
     x = BAParams(*(torch.zeros_like(a) for a in g))
     r = g
     z = _precond_apply(Minv, free, r)
     p = z
-    rz = _dot(r, z)
+    rz = _dot(r, z, reducer, points_sharded)
     for _ in range(n_iters):
-        Hp = _hvp(obs, seg, Jp, Jx, Jm, Ji, w, lam, blocks, free, p)
-        alpha = rz / torch.clamp_min(_dot(p, Hp), 1e-20)
+        Hp = _hvp(obs, seg, Jp, Jx, Jm, Ji, w, lam, blocks, free, p, reducer, points_sharded)
+        alpha = rz / torch.clamp_min(_dot(p, Hp, reducer, points_sharded), 1e-20)
         x = _axpy(alpha, p, x)
         r = _axpy(-alpha, Hp, r)
         z = _precond_apply(Minv, free, r)
-        rz_new = _dot(r, z)
+        rz_new = _dot(r, z, reducer, points_sharded)
         beta = rz_new / torch.clamp_min(rz, 1e-20)
         p = _axpy(beta, p, z)
         rz = rz_new
@@ -216,33 +272,35 @@ class LMState(NamedTuple):
     n_iters: torch.Tensor
 
 
-def _lm_cost(params: BAParams, obs: Observations, config: LMConfig) -> torch.Tensor:
+def _lm_cost(params: BAParams, obs: Observations, config: LMConfig, reducer: Reducer = None) -> torch.Tensor:
     r, z = residuals_only(params, obs)
-    return robust_cost(r, z, obs, config.huber_delta)
+    c, = _reduce(reducer, robust_cost(r, z, obs, config.huber_delta))
+    return c
 
 
-def _lm_init(params: BAParams, obs: Observations, config: LMConfig) -> LMState:
+def _lm_init(params: BAParams, obs: Observations, config: LMConfig, reducer: Reducer = None) -> LMState:
     dev = params.poses.device
     return LMState(params, torch.tensor(config.init_lambda, dtype=torch.float32, device=dev),
-                   _lm_cost(params, obs, config), torch.zeros((), dtype=torch.bool, device=dev),
+                   _lm_cost(params, obs, config, reducer), torch.zeros((), dtype=torch.bool, device=dev),
                    torch.zeros((), dtype=torch.int64, device=dev))
 
 
 def _lm_step_body(state: LMState, obs: Observations, seg: Segments, free: FreeMask,
-                  config: LMConfig) -> LMState:
+                  config: LMConfig, reducer: Reducer = None) -> LMState:
     """One LM iteration: Jacobians -> PCG -> gain-ratio accept. A no-op on
     a state already `done`."""
     p = state.params
     r, z, Jp, Jx, Jm, Ji = residuals_and_jacobians(p, obs, with_mc=_carries_mask(free.mc),
                                                    with_intr=_carries_mask(free.intr))
     w, _ = huber_weights(r, z, obs, config.huber_delta)
-    grad, blocks = _build_grad_and_blocks(p, seg, Jp, Jx, Jm, Ji, w, r)
+    ps = config.points_sharded
+    grad, blocks = _build_grad_and_blocks(p, seg, Jp, Jx, Jm, Ji, w, r, reducer, ps)
     grad = _mask_params(grad, free)
     Minv = tuple(_block_inv(B, state.lam) for B in blocks)
-    delta = _pcg(obs, seg, Jp, Jx, Jm, Ji, w, state.lam, blocks, Minv, free, grad, config.cg_iters)
+    delta = _pcg(obs, seg, Jp, Jx, Jm, Ji, w, state.lam, blocks, Minv, free, grad, config.cg_iters, reducer, ps)
     delta = BAParams(*(torch.where(torch.isfinite(x), x, torch.zeros_like(x)) for x in delta))
     new_params = BAParams(*(a + b for a, b in zip(p, _mask_params(delta, free))))
-    new_cost = _lm_cost(new_params, obs, config)
+    new_cost = _lm_cost(new_params, obs, config, reducer)
     live = ~state.done
     accept = (new_cost < state.cost) & live
     gain = (state.cost - new_cost) / torch.clamp_min(torch.abs(state.cost), 1e-12)
@@ -262,20 +320,26 @@ def lm_solve_interruptible(
     interrupt=None,
     chunk_iters: int = 1,
     pre_step=None,
+    reducer: Reducer = None,
 ) -> Tuple[BAParams, torch.Tensor]:
     """Host-driven LM: chunks of `chunk_iters` iterations, one host read of
     the `done` flag after each, `interrupt()` (the reference's InterruptBA,
     cLocalMapping.cpp:515) checked between chunks. `pre_step()` runs before
     each chunk (the async mapping worker's tracker-priority gate). Returns
-    (params, robust cost)."""
+    (params, robust cost).
+
+    With a reducer, `interrupt` and `pre_step` raise: a decision one rank
+    takes alone leaves the others waiting in a collective."""
+    if reducer is not None and (interrupt is not None or pre_step is not None):
+        raise ValueError("a distributed solve takes no interrupt or pre_step: every rank must take the same branch")
     seg = make_segments(params, obs)
-    state = _lm_init(params, obs, config)
+    state = _lm_init(params, obs, config, reducer)
     it = 0
     while it < config.max_iters:
         if pre_step is not None:
             pre_step()
         for _ in range(min(max(chunk_iters, 1), config.max_iters - it)):
-            state = _lm_step_body(state, obs, seg, free, config)
+            state = _lm_step_body(state, obs, seg, free, config, reducer)
             it += 1
         if bool(state.done):
             break
@@ -285,9 +349,11 @@ def lm_solve_interruptible(
 
 
 def lm_solve(params: BAParams, obs: Observations, free: FreeMask,
-             config: LMConfig = LMConfig()) -> Tuple[BAParams, torch.Tensor]:
-    """Full LM loop until `done` or max_iters. Returns (params, robust cost)."""
-    return lm_solve_interruptible(params, obs, free, config, chunk_iters=1)
+             config: LMConfig = LMConfig(), reducer: Reducer = None) -> Tuple[BAParams, torch.Tensor]:
+    """Full LM loop until `done` or max_iters. Returns (params, robust cost).
+    Pass a reducer for distributed BA (`parallel/`): each rank then holds its
+    shard of the rows (and, with `config.points_sharded`, of the points)."""
+    return lm_solve_interruptible(params, obs, free, config, chunk_iters=1, reducer=reducer)
 
 
 # ---------------------------------------------------------------------------

@@ -344,12 +344,19 @@ class MapStore:
     def point_n_obs(self, p: int) -> int:
         return int(self.pt_nobs[p])
 
+    def point_n_obs_many(self, ps: np.ndarray) -> np.ndarray:
+        return self.pt_nobs[np.asarray(ps, np.int64)]
+
     def recount_obs(self):
         """Rebuild pt_nobs from kf_point (a loaded checkpoint does not carry it)."""
         flat = self.kf_point[self.kf_point >= 0]
         self.pt_nobs[:] = 0
         if len(flat):
             np.add.at(self.pt_nobs, flat, 1)
+
+    def point_observers(self, p: int):
+        """(keyframes, feature slots) observing point p."""
+        return np.nonzero(self.kf_point == p)
 
     # ---------------------------------------------------- derived structures
     def active_kfs(self) -> np.ndarray:
@@ -371,6 +378,9 @@ class MapStore:
     def best_covisible(self, k: int, n: int) -> List[int]:
         cov = self.covisibility(k)
         return [j for j, _ in sorted(cov.items(), key=lambda kv: -kv[1])[:n]]
+
+    def update_point_stats(self, p: int):
+        self.update_point_stats_many(np.asarray([p]))
 
     def update_point_stats_many(self, ps: np.ndarray):
         """Recompute each point's distinctive descriptor (median-Hamming
