@@ -2,8 +2,9 @@
 """Drive the PyTorch port's tracking step, map bootstrap, system (sync and
 async), loop closing, CLI and eval entry, with ORB and with mdBRIEF's
 learned masks, map checkpoint and resume, localization mode, the viewer,
-the profiler, self-calibrating BA, the long run and the large-map BA with
-its distributed layouts, on one CUDA card.
+the profiler, self-calibrating BA, the long run, the large-map BA with
+its distributed layouts, and the port's bench, BA bench and graft entry,
+on one CUDA card.
 
     python3 chip_smoke.py [--reloc-dump NPZ]
 
@@ -23,10 +24,14 @@ Phases, each reported on its own lines:
      extract_features -> track_frame_fused. Checks the inlier count, that
      K1 ran twice, and that the plain matcher gives the same answer; then
      captures the arguments of the frame's two K1 launches.
-  4. timing: 30 frames after warm-up, and K1 against its plain version at
-     the tracking shape on random inputs: device time (CUDA graph
-     replays), the eager call, the bound and the library piece (the +-1
-     bf16 torch.matmul of the descriptors: the distance alone).
+  4. timing: extraction and tracking ms (CUDA events over 3 warm-up
+     frames); the bench's phase 1 (multicol_slam_tpu_torch/bench.py: its
+     own slice on float32 images, frames/s over 30 back-to-back frames, the
+     synchronous frame's median of 10, >= 100 inliers); the plain matcher's
+     frame; K1 against its plain version at the tracking shape on random
+     inputs: device time (CUDA graph replays), the eager call, the bound
+     and the library piece (the +-1 bf16 torch.matmul of the descriptors:
+     the distance alone).
   5. k2: K2 (`masked_best_match`, one camera) against its plain version,
      exactly, at Q = T = 800, ragged, without rad_q, with ties, all
      disabled, with 16- and 64-byte descriptors and the split cases; and
@@ -46,8 +51,9 @@ Phases, each reported on its own lines:
   8. captured: K1 on the main path's own launches (tracking stages 1 and
      2, the bootstrap's forward and backward window match, the system's
      last fusion, the loop closer's last Sim3-check and SearchAndFuse
-     projections, the worker-stream fusions of 12 and 13, and phase 15's
-     masked tracking stages, fusion and worker-stream fusion): P, the
+     projections, the graft entry's, the worker-stream fusions of 12 and 13,
+     phase 15's masked tracking stages, fusion and worker-stream fusion,
+     and the bench pipeline's last tracking launch): P, the
      pairs that pass the window and band; kernel == plain exactly; times.
   9. split: K1 (tracking stage 1, bootstrap forward) and K2 at every
      target chunk the kernel takes (64, 128, 256): exact at each, and the
@@ -85,9 +91,10 @@ Phases, each reported on its own lines:
      arguments of the last radius-10 and radius-6 launches, checked in
      phase 8) and the plain-matcher replay, identical (states, inliers,
      keyframes, loop edges, bit-identical keyframe poses); gates >= 1 loop,
-     >= 120 tracked, ATE <= 0.10 m. (A)'s six runs and (B)'s replay run side
-     by side in spawned worker processes (the runs are host-bound); beside
-     them run phase 14's two processes and the writer of phase 13's dataset.
+     >= 120 tracked, ATE <= 0.10 m. (A)'s six runs, (B)'s instrumented run
+     and its replay run side by side in spawned worker processes (the runs
+     are host-bound); beside them run the eval processes of 14, 15 (d) and
+     17 and the writer of phase 13's dataset.
  12. async loop (C2): recipe (B) again with `async_mapping=True`: mapping
      and loop closing on the worker thread and its own CUDA stream. K1
      launches by caller and by thread (no synchronised stage timers: a
@@ -139,33 +146,46 @@ Phases, each reported on its own lines:
      share (CUDA kernel time over the loop's wall time; reported).
  17. selfcal and the long run, in processes of their own beside the loop
      pool: `python3 -m multicol_slam_tpu_torch.eval --selfcal` (>= 10x),
-     `python3 -m multicol_slam_tpu_torch.longrun --frames 100` (the full
-     run's first 100 frames: no exception, >= 90 % tracked; their K1
+     `python3 -m multicol_slam_tpu_torch.longrun --frames 60` (the full
+     run's first 60 frames: no exception, >= 90 % tracked; their K1
      launches are not counted here).
  18. large BA (C6): make_large_ba_problem's default (64 keyframes, 50k
      points, 500k rows) sorted by point id, 10 LM iterations of 20 PCG steps
-     (gain_eps 0): (a) lm_solve on the card, LM iterations/s (median of 3
-     timed runs after a warm one), the final cost within 1 % of the JAX
-     package's on the CPU (tests/torch_large_ba_reference.py), one LM
-     iteration under torch.profiler (kernels, device time, busy share);
+     (gain_eps 0), through multicol_slam_tpu_torch/bench_ba.py's problem,
+     config and warm + timed pair: (a) lm_solve on the card, LM
+     iterations/s, the final cost within 1 % of the JAX package's on the CPU
+     (tests/torch_large_ba_reference.py), one LM iteration under
+     torch.profiler (kernels, device time, busy share);
      (b) a world of one rank over NCCL: distributed_bundle_adjust
      bit-identical to (a), point_sharded_bundle_adjust within 1e-5, each one's
      iterations/s; (c) two ranks on the one card over gloo with CUDA tensors
      (tests/torch_multihost_worker.py): tests/test_multihost.py's problem
      through multihost_bundle_adjust and point_sharded_bundle_adjust, both
      ranks bit-identical, poses within 5e-3 of the single-device solve and
-     2e-2 of the ground truth; (d) __graft_entry__.dryrun_multichip's asserts
-     in (c)'s group. No kernel of the port's own runs here (the reference's
-     distributed BA is jnp and psum).
+     2e-2 of the ground truth; (d) the package's dry run
+     (graft_entry.dryrun_multichip, the reference's asserts) in (c)'s group.
+     No kernel of the port's own runs here (the reference's distributed BA
+     is jnp and psum).
+ 19. bench: (a) graft_entry.entry()'s step once: exactly one K1 launch, its
+     arguments checked in phase 8; (b) phase 4 is the bench's phase 1; (c)
+     the bench's phase 2 (the software-pipelined async system at depth 2,
+     paced and unpaced) at 40 frames and (d) its phase 3 (a loop closure
+     under 7.5 fps pacing) at 135 frames, each in a process of its own beside
+     phases 12-18, K1 launches counted there; gates: every key, (c) finite,
+     depth 2, >= 30 of 40 tracked, >= 1 keyframe frame, the tracker's last K1
+     launch kept for phase 8; no worker error (the bench raises on one); (d)'s
+     loops reported, not gated; (e), (f) in phase 18.
 Each time stands beside two bounds: the bytes at the HBM rate against the
 products of the P pairs that pass at the int8 tensor-core peak (what this
 run's data needs), and the dense one that counts every pair, as the TPU
 kernel computes them.
 Then one JSON line of kernels, and last {"ok": true, "device": {...}}.
-The order of the run: 1-5, 6-7, 10, 11 (14, 15's eval, 17 and 13's
-dataset beside it), 12, 13, 15, 16, 18, then 8 and 9 on the captured
-launches (the worker-stream fusion launches of 12, 13 and 15 among them).
-Every phase runs before a failed gate of 12-18 raises.
+The order of the run: 1-4, 19 (a), 5, 6-7, 10, 11 (14, 15's eval, 17
+and 13's dataset beside it), 12, 13, 15, 16, 18 (19 (c) and (d) beside
+them), then 8 and 9 on the captured launches (the worker-stream fusion launches of 12,
+13 and 15 and the graft entry's and the bench's among them). Each phase's
+wall seconds are printed on a line of their own ("time: phase ...").
+Every phase runs before a failed gate of 12-19 raises.
 Any failure raises and exits non-zero. Needs one card; no CPU fallback.
 """
 import json
@@ -180,29 +200,16 @@ import numpy as np
 
 C, H, W = 3, 480, 754
 Q, T, B = 400, 4096, 32
-N_FRAMES = 30
 KERNEL_REPS = 50
+WARM_FRAMES = 3          # phase 4's warm-up frames, timed by CUDA events
 # the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W)
 INT8_PEAK_OPS = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 K1_ARGS = ("desc_q", "uv_q", "oct_q", "desc_t", "uv_t", "rad_t", "lvl_t")
-# 754x480 fisheye rig of the Lafida family (polynomials of the indoor set)
-POL = [-209.2, 0.0, 0.0021, -4.2e-06, 1.77e-08]
-INVPOL = [293.7, 150.0, -10.4, 28.2, 7.1, 0.06, 10.4, 0.17, -5.9, 1.18, 3.1, 0.81]
-# camera -> body extrinsics: identity rotations, cameras 1 and 2 offset 0.2 m in x / y
-MC_CAYLEY = [[0.0] * 6, [0.0, 0.0, 0.0, 0.2, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.2, 0.0]]
-# ~0.5 deg rotation + 3 cm translation: a motion-model prediction error
-POSE0 = [0.002, -0.003, 0.002, 0.02, -0.015, 0.01]
 
 
 def log(msg):
     print(msg, flush=True)
-
-
-def card_line():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def match_problem(rng, C, Q, T, shared, masked, frac_t=0.8, ties=False, B=B):
@@ -407,45 +414,24 @@ def phase_kernel(dev):
 
 
 def build_slice(dev):
-    """Rig, extractor tables, images and the local map of the tracking step."""
+    """Rig, extractor tables, images and the local map of the tracking step:
+    the bench's phase-1 recipe (multicol_slam_tpu_torch/bench.py) on uint8
+    images."""
     import torch
-    from multicol_slam_tpu_torch.models.camera import OmniCamera
-    from multicol_slam_tpu_torch.models.rig import MultiCamRig
+    from multicol_slam_tpu_torch import bench
     from multicol_slam_tpu_torch.slam.features import ExtractorTables, extract_features
-    from multicol_slam_tpu_torch.slam.tracking_kernels import LocalPoints
     from multicol_slam_tpu_torch.utils.config import ExtractorSettings
 
     settings = ExtractorSettings(n_features=400, n_levels=8, scale_factor=1.2, fast_th=20)
-    cams = OmniCamera.from_params([POL] * C, [INVPOL] * C, [[1.0, 0.0, 0.0]] * C,
-                                  [[W / 2.0, H / 2.0]] * C, [[W, H]] * C, device=dev)
-    rig = MultiCamRig.from_cayley(cams, torch.tensor(MC_CAYLEY, dtype=torch.float32, device=dev))
+    rig = bench.synthetic_lafida_rig(dev)
     tables = ExtractorTables(settings, H, W, device=dev)
     rng = np.random.default_rng(0)
     images = torch.tensor(rng.integers(0, 256, (C, H, W), dtype=np.uint8), device=dev)
-    # local map: each valid keypoint's ray pushed to a depth in [3, 12] m
-    # through its camera's extrinsics, with its real descriptor
     f0 = extract_features(images, rig.cams, settings, tables)
-    valid, rays, desc = (getattr(f0, k).cpu().numpy() for k in ("valid", "rays", "desc"))
-    Mc = rig.Mc.cpu().numpy()
-    Xs, Ds = [], []
-    for c in range(C):
-        v = valid[c]
-        depth = rng.uniform(3.0, 12.0, v.sum()).astype(np.float32)
-        Xc = rays[c][v] * depth[:, None]
-        Xs.append((Mc[c, :3, :3] @ Xc.T).T + Mc[c, :3, 3])
-        Ds.append(desc[c][v])
-    L = 4096
-    X = np.concatenate(Xs)[:L].astype(np.float32)
-    D = np.concatenate(Ds)[:L]
-    n = len(X)
-    pts = LocalPoints(
-        X=torch.tensor(np.pad(X, ((0, L - n), (0, 0))), device=dev),
-        desc=torch.tensor(np.pad(D, ((0, L - n), (0, 0))), device=dev),
-        min_dist=torch.full((L,), 0.5, device=dev),
-        max_dist=torch.full((L,), 40.0, device=dev),
-        valid=torch.arange(L, device=dev) < n,
-    )
-    pose0 = torch.tensor(POSE0, dtype=torch.float32, device=dev)
+    X, D, n = bench.local_map(*(getattr(f0, k).cpu().numpy() for k in ("valid", "rays", "desc")),
+                              rig.Mc.cpu().numpy(), rng)
+    pts = bench.local_points(X, D, n, bench.LOCAL_MAP, dev)
+    pose0 = torch.tensor(bench.POSE0, dtype=torch.float32, device=dev)
     return settings, rig, tables, images, pts, pose0, n
 
 
@@ -514,7 +500,12 @@ def time_cuda(fn, reps):
 
 
 def phase_timing(dev, state, frame, card):
+    """Phase 4: extraction and tracking ms a frame (CUDA events over the
+    warm-up frames), then the bench's phase 1 (its own slice: float32
+    images, 30 frames back to back, 10 synchronous), the plain matcher's
+    frame, and K1 against its plain version on random inputs."""
     import torch
+    from multicol_slam_tpu_torch import bench
     from multicol_slam_tpu_torch.ops.best_match import (
         masked_best_match_cams, masked_best_match_cams_plain,
     )
@@ -523,12 +514,8 @@ def phase_timing(dev, state, frame, card):
 
     settings, rig, tables, images, pts, pose0, _ = state
     mc6, intr = rig.Mc_cayley, rig.cams.to_vector()
-    for _ in range(3):
-        frame()
-    torch.cuda.synchronize()
     ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(N_FRAMES)]
-    t0 = time.perf_counter()
+           torch.cuda.Event(enable_timing=True)) for _ in range(WARM_FRAMES)]
     for e0, e1, e2 in ev:
         e0.record()
         feats = extract_features(images, rig.cams, settings, tables)
@@ -537,11 +524,16 @@ def phase_timing(dev, state, frame, card):
                           radius1=15.0, radius2=4.0, th_desc=96.0)
         e2.record()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    ext_ms = float(np.mean([a.elapsed_time(b) for a, b, _ in ev]))
-    trk_ms = float(np.mean([b.elapsed_time(c) for _, b, c in ev]))
-    log(f"timing: {N_FRAMES} frames in {wall:.4f} s = {N_FRAMES / wall:.3f} frames/s; "
-        f"extraction {ext_ms:.3f} ms, tracking {trk_ms:.3f} ms per frame (CUDA events) [{card}]")
+    ext_ms = [a.elapsed_time(b) for a, b, _ in ev]
+    trk_ms = [b.elapsed_time(c) for _, b, c in ev]
+    log(f"timing: extraction {ext_ms[-1]:.3f} ms, tracking {trk_ms[-1]:.3f} ms per frame (CUDA events, the last of "
+        f"{WARM_FRAMES} warm-up frames; all: {', '.join(f'{x:.3f}' for x in ext_ms)} / "
+        f"{', '.join(f'{x:.3f}' for x in trk_ms)}) [{card}]")
+    rig_b, real = bench._lafida_rig(dev)
+    p1 = bench.tracking_phase(rig_b, settings, dev)
+    log(f"timing: bench phase 1 ({C}x{W}x{H} {'real' if real else 'synthetic'} calibration, float32 images): "
+        f"{p1['fps']:.3f} frames/s over 30 back-to-back frames, synchronous frame {p1['sync_frame_ms']:.3f} ms "
+        f"(median of 10, each ended by the packed readback), {p1['n_inliers']} stage-2 inliers (gate 100) [{card}]")
     plain_trk = time_cuda(lambda: frame(masked_best_match_cams_plain), 5)
     log(f"timing: one frame with the plain matcher {plain_trk:.3f} ms (CUDA events) [{card}]")
     a = to_device(match_problem(np.random.default_rng(2), C, Q, T, True, False), dev)
@@ -552,7 +544,7 @@ def phase_timing(dev, state, frame, card):
         f"{profile_grids(lambda: masked_best_match_cams(**a))} [{card}]")
     log(f"timing: K1 at C={C} Q={Q} T={T} B={B} (random inputs): {us_line(t)}; {bound_text(bound, t['ms'])}; "
         f"library piece (+-1 bf16 torch.matmul, the distance alone) {piece_ms * 1e3:.2f} us [{card}]")
-    return dict(t, piece_ms=piece_ms, bound=bound)
+    return dict(t, piece_ms=piece_ms, bound=bound, bench_phase1=p1, extraction_ms=ext_ms[-1], tracking_ms=trk_ms[-1])
 
 
 # the map bootstrap (system.py:226-240, 390-445) on bench.py:207-211's world
@@ -654,43 +646,33 @@ def rot_deg(Ra, Rb):
     return float(np.degrees(np.arccos(np.clip((np.trace(Ra.T @ Rb) - 1.0) / 2.0, -1.0, 1.0))))
 
 
-def lafida_rig(device):
-    """The 754x480 Lafida-family rig (bench.py:51-62's fallback) on `device`."""
-    import torch
-    from multicol_slam_tpu_torch.models.camera import OmniCamera
-    from multicol_slam_tpu_torch.models.rig import MultiCamRig
-
-    cams = OmniCamera.from_params([POL] * C, [INVPOL] * C, [[1.0, 0.0, 0.0]] * C,
-                                  [[W / 2.0, H / 2.0]] * C, [[W, H]] * C, device=device)
-    return MultiCamRig.from_cayley(cams, torch.tensor(MC_CAYLEY, dtype=torch.float32, device=device))
-
-
 def room_world():
     """bench.py:207-211's world (3000 room landmarks, a 3 m circle at 400
     frames a lap, seed 12) on the 754x480 rig, its first SYS_FRAMES frames:
     host data, the rig on the CPU."""
+    from multicol_slam_tpu_torch.bench import synthetic_lafida_rig
     from multicol_slam_tpu_torch.io.synthetic import make_world
 
     return make_world(n_points=3000, n_frames=SYS_FRAMES, n_cams=C, n_feats=400, noise_px=0.0,
                       trajectory="circle_noyaw", radius=3.0, seed=12, period=400, landmarks="room",
-                      max_vis_dist=12.0, rig=lafida_rig("cpu"))
+                      max_vis_dist=12.0, rig=synthetic_lafida_rig("cpu"))
 
 
 def build_bootstrap(dev):
     """The rig on the host (for rendering) and on the card, the world of
     bench.py:207-211, its first SYS_FRAMES frames and the extractor tables."""
+    from multicol_slam_tpu_torch.bench import synthetic_lafida_rig
     from multicol_slam_tpu_torch.io.render import render_frame
     from multicol_slam_tpu_torch.slam.features import ExtractorTables
     from multicol_slam_tpu_torch.utils.config import ExtractorSettings
 
-    rig_on = lafida_rig
     settings = ExtractorSettings(n_features=400, n_levels=8, scale_factor=1.2, fast_th=20)
     t0 = time.perf_counter()
     world = room_world()
     images = [render_frame(world, t) for t in range(SYS_FRAMES)]
     log(f"bootstrap: rendered {SYS_FRAMES} frames of {C}x{W}x{H} on the host in "
         f"{time.perf_counter() - t0:.2f} s")
-    return world, images, rig_on(dev), settings, ExtractorTables(settings, H, W, device=dev)
+    return world, images, synthetic_lafida_rig(dev), settings, ExtractorTables(settings, H, W, device=dev)
 
 
 def phase_bootstrap(dev, boot):
@@ -1406,13 +1388,14 @@ LOOP_ATE_GATE = {"A": 0.08, "B": 0.10}   # twice the reference's
 def loop_world(dev, recipe, quiet=False):
     """The drift world of a recipe, its features on the card, and the rig on
     the card."""
+    from multicol_slam_tpu_torch.bench import synthetic_lafida_rig
     from multicol_slam_tpu_torch.io.synthetic import make_synthetic_rig, make_world
 
     r = LOOP_RECIPES[recipe]
     if recipe == "A":
         host, rig = make_synthetic_rig(C, device="cpu"), make_synthetic_rig(C, device=dev)
     else:
-        host, rig = lafida_rig("cpu"), lafida_rig(dev)
+        host, rig = synthetic_lafida_rig("cpu"), synthetic_lafida_rig(dev)
     t0 = time.perf_counter()
     world = make_world(n_points=r["n_points"], n_frames=LOOP_FRAMES, n_cams=C, n_feats=r["n_feats"], noise_px=0.5,
                        trajectory="circle_noyaw", radius=3.0, seed=7, period=85, max_vis_dist=3.0,
@@ -1500,47 +1483,58 @@ def same_run(label, ra, rb):
 def loop_worker(job):
     """One run of a loop recipe in a process of its own on the card (the
     runs are host-bound, so the recipe's runs share the card side by side):
-    its summary, K1 launches (counted in the process, from 0) and record."""
+    its summary, K1 launches (counted in the process, from 0) and record.
+    Instrumented (`instrument`): also the launches by caller, the stage
+    times, CorrectLoop's commit phases, the vocabulary's size and the last
+    loop-projection launches' arguments (on the host)."""
     import torch
     from multicol_slam_tpu_torch.ops.best_match import masked_best_match_cams, masked_best_match_cams_plain
 
-    recipe, loops, seed, plain, device = job
+    recipe, loops, seed, plain, device, instrument_it = job
     torch.set_num_threads(1)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(device)
     boot = loop_world(dev, recipe, quiet=True)
     slam, frames, rec, wall = run_loop(dev, recipe, boot, loops,
-                                       masked_best_match_cams_plain if plain else masked_best_match_cams, seed=seed)
-    return dict(loop_summary(boot[0], slam, frames, rec), launches=rec["total_launches"], wall=wall, seed=seed,
-                record=run_record(slam, frames))
+                                       masked_best_match_cams_plain if plain else masked_best_match_cams, seed=seed,
+                                       instrument_it=instrument_it)
+    out = dict(loop_summary(boot[0], slam, frames, rec), launches=rec["total_launches"], wall=wall, seed=seed,
+               record=run_record(slam, frames))
+    if instrument_it:
+        lc = slam.loop_closer
+        host = lambda a: {k: v.cpu().numpy() if torch.is_tensor(v) else v for k, v in a.items()}  # noqa: E731
+        out.update(by_caller=dict(rec["launches"]), stages={k: [round(x, 3) for x in v] for k, v in rec["ms"].items()},
+                   locked_phase_ms=list(lc.locked_phase_ms), n_words=lc.voc.n_words if lc.voc else 0,
+                   captured={k: host(v[-1]) for k, v in rec["loop_args"].items() if v})
+    return out
 
 
 def phase_loop(dev, card, beside_pool=None):
     """Loop closing on the card. Side by side in worker processes: recipe
-    (A) without and with loops under LOOP_A_SEEDS, and recipe (B)'s
-    plain-matcher replay (and `beside_pool`'s jobs: started before the
-    pool, `beside_pool()` returns a callable that waits for them, called
-    after it). Then, alone, (B) at full width with loops, instrumented (K1
-    launches by caller, the loop closer's included, adding up to the run's;
-    stage and frame times; the arguments of the last Sim3-check and
-    SearchAndFuse launches); the replay must be identical to it. Every
-    recipe runs before a failed gate raises."""
+    (A) without and with loops under LOOP_A_SEEDS, recipe (B) at full width
+    with loops, instrumented (K1 launches by caller, the loop closer's
+    included, adding up to the run's; stage and frame times; the arguments
+    of the last Sim3-check and SearchAndFuse launches), and (B)'s
+    plain-matcher replay, which must be identical to it (and `beside_pool`'s
+    jobs: started before the pool, `beside_pool()` returns a callable that
+    waits for them, called after it). Every recipe runs before a failed
+    gate raises."""
     import concurrent.futures
     import multiprocessing
 
-    from multicol_slam_tpu_torch.ops.best_match import masked_best_match_cams
+    import torch
 
-    jobs = [("A", loops, seed, False, str(dev)) for seed in LOOP_A_SEEDS for loops in (False, True)]
-    jobs.append(("B", True, 0, True, str(dev)))
+    jobs = [("A", loops, seed, False, str(dev), False) for seed in LOOP_A_SEEDS for loops in (False, True)]
+    jobs += [("B", True, 0, False, str(dev), True), ("B", True, 0, True, str(dev), False)]
     t0 = time.perf_counter()
     wait_beside = beside_pool() if beside_pool is not None else None
     with concurrent.futures.ProcessPoolExecutor(len(jobs), mp_context=multiprocessing.get_context("spawn")) as pool:
         results = list(pool.map(loop_worker, jobs))
     log(f"loop: {len(jobs)} runs side by side in worker processes (recipe (A) x {len(LOOP_A_SEEDS)} seeds x loops "
-        f"off / on, recipe (B)'s plain-matcher replay) in {time.perf_counter() - t0:.3f} s")
+        f"off / on, recipe (B) instrumented and its plain-matcher replay) in {time.perf_counter() - t0:.3f} s")
     beside = wait_beside() if wait_beside is not None else None
     runs = {False: [], True: []}
-    for (_, loops, seed, _, _), u in zip(jobs[:-1], results):
+    for (_, loops, seed, _, _, _), u in zip(jobs[:-2], results):
         runs[loops].append(u)
         log(f"loop: recipe (A), seed {seed}, loops {'on' if loops else 'off'}: {summary_text(u)}; K1 launches "
             f"{u['launches']}; {u['wall']:.3f} s side by side; median ms a frame {u['ms_frame']:.3f}, a keyframe "
@@ -1558,37 +1552,36 @@ def phase_loop(dev, card, beside_pool=None):
     if not (ate[True] <= ate[False] / LOOP_A_GAIN and ate[True] <= LOOP_ATE_GATE["A"]):
         failed.append(f"recipe (A): median ATE {ate[True]} with loops, {ate[False]} without")
 
-    boot_b = loop_world(dev, "B")
-    slam, frames, rec, wall = run_loop(dev, "B", boot_b, True, masked_best_match_cams, instrument_it=True)
-    u = loop_summary(boot_b[0], slam, frames, rec)
-    lc = slam.loop_closer
-    stages = {k: [round(x, 3) for x in v] for k, v in rec["ms"].items()}
-    log(f"loop: recipe (B), {C}x{W}x{H}, loops on: {summary_text(u)}; {wall:.3f} s")
-    log(f"loop: recipe (B): K1 launches by caller {rec['launches']} (total {rec['total_launches']}, none left over)")
+    u, replay = results[-2], results[-1]
+    stages = u["stages"]
+    log(f"loop: recipe (B), {C}x{W}x{H}, loops on: {summary_text(u)}; {u['wall']:.3f} s side by side")
+    log(f"loop: recipe (B): K1 launches by caller {u['by_caller']} (total {u['launches']}, none left over)")
     log(f"loop: recipe (B): median ms a tracked frame {u['ms_frame']:.3f} (no keyframe), {u['ms_keyframe']:.3f} "
         f"(a keyframe without a loop), {u['ms_loop']:.3f} (the loop's frame); host clock, the mapping and loop "
-        f"stages synchronised by the instrumentation [{card}]")
+        f"stages synchronised by the instrumentation, {len(jobs)} processes sharing the host [{card}]")
     log(f"loop: recipe (B): stage ms (the instrumented run, host clock, synchronised) {json.dumps(stages)}; "
-        f"CorrectLoop's commit phases {[round(x, 3) for x in lc.locked_phase_ms]} ms; vocabulary of "
-        f"{lc.voc.n_words} words [{card}]")
+        f"CorrectLoop's commit phases {[round(x, 3) for x in u['locked_phase_ms']]} ms; vocabulary of "
+        f"{u['n_words']} words [{card}]")
     if u["loops"] < 1 or u["tracked"] < LOOP_MIN_TRACKED or not u["ate_kf"] <= LOOP_ATE_GATE["B"]:
         failed.append(f"recipe (B): {summary_text(u)}; gates 1 loop, {LOOP_MIN_TRACKED} tracked, "
                       f"{LOOP_ATE_GATE['B']} m")
     for key in ("loop_sim3_check", "loop_search_and_fuse", "tracking", "fuse"):
-        if rec["launches"][key] == 0 or (key.startswith("loop") and not rec["loop_args"][key]):
-            failed.append(f"recipe (B): no K1 launch of '{key}': {rec['launches']}")
-    failed += same_run("recipe (B) plain-matcher replay", run_record(slam, frames), results[-1]["record"])
+        if u["by_caller"][key] == 0 or (key.startswith("loop") and key not in u["captured"]):
+            failed.append(f"recipe (B): no K1 launch of '{key}': {u['by_caller']}")
+    failed += same_run("recipe (B) plain-matcher replay", u["record"], replay["record"])
     if failed:
         raise AssertionError("; ".join(failed))
     log(f"loop: recipe (B): the uninstrumented plain-matcher replay identical (states, inliers, matches, "
-        f"keyframes per frame, loop edges {slam.store.loop_edges}; {u['n_kf']} keyframe poses bit-identical)")
-    strip = lambda r: {k: v for k, v in r.items() if k not in ("record", "frame_ms")}  # noqa: E731
+        f"keyframes per frame, loop edges {u['record']['loop_edges']}; {u['n_kf']} keyframe poses bit-identical)")
+    strip = lambda r: {k: v for k, v in r.items()  # noqa: E731
+                       if k not in ("record", "frame_ms", "by_caller", "stages", "locked_phase_ms", "captured")}
     return dict(launches={"loop_A_off": sum(r["launches"] for r in runs[False]),
                           "loop_A_on": sum(r["launches"] for r in runs[True]),
-                          **{f"loop_B_{k}": v for k, v in rec["launches"].items()}},
+                          **{f"loop_B_{k}": v for k, v in u["by_caller"].items()}},
                 A=[strip(r) for r in runs[True]], A_off=[strip(r) for r in runs[False]], A_median_ate=ate,
                 B=strip(u), B_frame_ms=u["frame_ms"], stages=stages,
-                captured={k: v[-1] for k, v in rec["loop_args"].items()}, beside=beside)
+                captured={k: {n: torch.from_numpy(x).to(dev) if isinstance(x, np.ndarray) else x for n, x in a.items()}
+                          for k, a in u["captured"].items()}, beside=beside)
 
 
 # the CLI / async phase: C1 the CLI at full width on the system phase's world
@@ -1606,7 +1599,7 @@ EVAL_MD_GATE = 0.25           # tests/test_eval_accuracy.py:49-61, mdBRIEF's
 # phase 17, beside the pool too: eval --selfcal and the long run's first
 # LONGRUN_FRAMES frames of its 1600-frame world (the full run takes longer
 # than this script may)
-LONGRUN_FRAMES = 100
+LONGRUN_FRAMES = 60           # 100 before phase 19's two processes joined the pool
 SELFCAL_GATE = 10.0           # tests/test_eval_accuracy.py:100-110
 SELFCAL_EVAL_MD = "27.2-27.3x"   # EVAL.md's reduction of the JAX package (a ratio)
 LONGRUN_MIN_TRACKED = 0.9
@@ -1908,6 +1901,217 @@ def phase_selfcal_longrun(beside, card):
             or res["tracked"] < LONGRUN_MIN_TRACKED * LONGRUN_FRAMES):
         failed.append(f"longrun: exit code {r['rc']}, summary {res}; output: {r['tail']}")
     return dict(selfcal=beside["phase17"]["selfcal"]["result"], longrun=res), failed
+
+
+# phase 19, the port's bench and graft entry (multicol_slam_tpu_torch/bench.py
+# and graft_entry.py): (a) entry()'s step; (b) the bench's phase 1 is phase
+# 4's; (c) the bench's phase 2 at BENCH_PIPELINE_FRAMES frames and (d) its
+# phase 3 at its full 135 frames, each in a process of its own beside
+# phases 12-18; (e) phase 18 (a) solves through bench_ba and (f) 18 (d) runs
+# the package's dry run.
+BENCH_JOBS = ("pipeline", "loop")
+BENCH_PIPELINE_FRAMES = 40    # the shortest run with a steady-state window (frames 30-39)
+BENCH_MIN_TRACKED = 30        # of the paced run's 40 frames
+BENCH_TIMEOUT = 600           # seconds from their start, after the loop pool
+
+
+def phase_graft_entry(dev, card):
+    """(a) graft_entry.entry()'s fn(*args) once: exactly one K1 launch, its
+    arguments captured (for phase 8), the pose finite."""
+    import torch
+    from multicol_slam_tpu_torch import graft_entry
+    from multicol_slam_tpu_torch.ops.best_match import KERNEL
+
+    fn, args = graft_entry.entry(dev)
+    captured = []
+    orig = graft_entry.track_stage
+    graft_entry.track_stage = lambda *a, **kw: orig(*a, **dict(kw, match_fn=recording_match(captured)))
+    try:
+        KERNEL.launches = 0
+        t0 = time.perf_counter()
+        pose, n_inl = fn(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = KERNEL.launches
+    finally:
+        graft_entry.track_stage = orig
+    pose = pose.cpu().numpy()
+    log(f"bench: (a) graft_entry.entry() on {tuple(args[0].shape)} images: pose {np.array2string(pose, precision=6)}, "
+        f"{int(n_inl)} inliers (the reference's compile check: noise images against the world's landmarks), "
+        f"K1 launches {launches}, first call {ms:.3f} ms (host clock, synchronised) [{card}]")
+    if launches != 1 or len(captured) != 1 or pose.shape != (6,) or not np.isfinite(pose).all():
+        raise AssertionError(f"graft entry: {launches} K1 launches, {len(captured)} captured, pose {pose}")
+    return dict(launches=launches, captured=captured[0], n_inliers=int(n_inl), ms=ms)
+
+
+def _host_timed(fn, name, calls):
+    """A method of the system wrapped to append (its host ms, whether it
+    returned a keyframe frame's metrics) to the system's record[name]; each
+    system's record is appended to the list `calls` at its first call. No
+    synchronisation (async mode: a device-wide sync would wait for the
+    worker)."""
+    def wrapped(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(self, *a, **kw)
+        ms = (time.perf_counter() - t0) * 1e3
+        if "_timed_calls" not in self.__dict__:
+            self._timed_calls = {}
+            calls.append(self._timed_calls)
+        self._timed_calls.setdefault(name, []).append((ms, bool(getattr(out, "is_keyframe", False))))
+        return out
+    return wrapped
+
+
+def pipeline_breakdown(calls, window):
+    """Phase 2's frames split into their parts, for the paced and the
+    unpaced run (the second and third systems; the first is the warm run):
+    prepare (extraction of the next frame), track_begin (the dispatch) and
+    track_finish (the readback, bookkeeping and keyframe decision; apart for
+    keyframe frames): median, p95 and worst host ms over the window's
+    calls."""
+    def stats(xs):
+        return dict(n=len(xs), median=float(np.median(xs)), p95=float(np.percentile(xs, 95)), worst=float(max(xs))) \
+            if xs else None
+    out = {}
+    for run, c in zip(("paced", "unpaced"), calls[1:3]):
+        fin = c["track_finish"][window:]
+        out[run] = dict(prepare=stats([ms for ms, _ in c["prepare"][window:]]),
+                        track_begin=stats([ms for ms, _ in c["track_begin"][window:]]),
+                        track_finish=stats([ms for ms, kf in fin if not kf]),
+                        track_finish_keyframe=stats([ms for ms, kf in fin if kf]))
+    return out
+
+
+def bench_worker(kind, out_path, device):
+    """(c) or (d) in a process of its own on the card: the bench's phase 2
+    at BENCH_PIPELINE_FRAMES frames ("pipeline") or its phase 3 ("loop").
+    K1's launch count is set to 0 just before the call and read just after
+    (the worker thread's launches included); for the pipeline, the
+    arguments of the tracker's last K1 launch are kept. Writes
+    OUT.json (result, launches, seconds) and OUT.npz (the launch). `device`:
+    the card, e.g. "cuda:0"."""
+    import torch
+    from multicol_slam_tpu_torch import bench
+    from multicol_slam_tpu_torch.ops.best_match import KERNEL
+    from multicol_slam_tpu_torch.slam import system as system_module
+    from multicol_slam_tpu_torch.slam.system import MultiColSLAM
+    from multicol_slam_tpu_torch.utils.config import ExtractorSettings
+
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    sink, patched, calls = [], [], []
+    if kind == "pipeline":
+        patched.append((system_module, "track_frame_fused", system_module.track_frame_fused))
+        system_module.track_frame_fused = _capturing(system_module.track_frame_fused, sink)
+        for name in ("prepare", "track_begin", "track_finish"):
+            patched.append((MultiColSLAM, name, getattr(MultiColSLAM, name)))
+            setattr(MultiColSLAM, name, _host_timed(getattr(MultiColSLAM, name), name, calls))
+    try:
+        KERNEL.launches = 0
+        t0 = time.perf_counter()
+        if kind == "pipeline":
+            rig, _ = bench._lafida_rig(dev)
+            settings = ExtractorSettings(n_features=400, n_levels=8, scale_factor=1.2, fast_th=20)
+            result = bench._pipeline_latency(rig, settings, n_frames=BENCH_PIPELINE_FRAMES, device=dev)
+        else:
+            result = bench._loop_closure_latency(device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        seconds, launches = time.perf_counter() - t0, KERNEL.launches
+    finally:
+        restore(patched)
+    extra = dict(breakdown=pipeline_breakdown(calls, bench.STEADY_FROM)) if calls else {}
+    with open(out_path + ".json", "w") as f:
+        json.dump(dict(result=result, launches=launches, s=seconds, **extra), f)
+    if sink:
+        np.savez(out_path + ".npz", **{k: v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+                                       for k, v in sink[-1].items() if v is not None})
+
+
+def start_bench(tmp, device):
+    """Start (c) and (d), each a bench_worker process beside phases 12-18
+    (beside the loop pool they lengthened it: 14 host-bound processes on 8
+    cores). Returns a callable that waits for them and returns their
+    results by kind."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = {}
+    for kind in BENCH_JOBS:
+        procs[kind] = ctx.Process(target=bench_worker, args=(kind, os.path.join(tmp, f"bench_{kind}"), device))
+        procs[kind].start()
+        _CHILDREN.append(procs[kind])
+    t0 = time.perf_counter()
+    return lambda: {kind: bench_result(proc, os.path.join(tmp, f"bench_{kind}"), t0) for kind, proc in procs.items()}
+
+
+def bench_result(proc, out_path, t0):
+    """Wait for a bench_worker (at most BENCH_TIMEOUT seconds after t0) and
+    read what it wrote: exit code, result, launches, its seconds, the
+    captured launch's file (or None) and when it was done."""
+    proc.join(timeout=max(1.0, BENCH_TIMEOUT - (time.perf_counter() - t0)))
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+        return dict(rc="timeout", result=None, launches=0, s=None, launch=None, done=time.perf_counter() - t0)
+    out = dict(rc=proc.exitcode, result=None, launches=0, s=None, launch=None, done=time.perf_counter() - t0)
+    if proc.exitcode == 0:
+        with open(out_path + ".json") as f:
+            out.update(json.load(f))
+        out["launch"] = out_path + ".npz" if os.path.exists(out_path + ".npz") else None
+    return out
+
+
+def load_launch(path, dev):
+    """A launch bench_worker kept: tensors on `dev`, scalars as numbers."""
+    import torch
+
+    with np.load(path) as z:
+        return {k: torch.from_numpy(z[k]).to(dev) if z[k].ndim else z[k].item() for k in z.files}
+
+
+def phase_bench(bench_res, card):
+    """Phase 19 (c) and (d): the bench processes' results and gates. (c) the
+    pipeline: every key present and every number finite, depth 2, >= 30 of
+    40 frames tracked in the paced run, >= 1 keyframe frame, K1 launched, its
+    last tracking launch captured; (d) the loop: every key and both gate
+    fields present, K1 launched; its loops are reported, not gated (the
+    reference's own phase 3 closed none in BENCH_r05). A worker error raises
+    in the bench, so its exit code is the gate. Returns (results,
+    failures)."""
+    from multicol_slam_tpu_torch import bench
+
+    keys = {"pipeline": set(bench.pipeline_summary(np.zeros(1), np.zeros(1), 0, 0, 0, [], "")),
+            "loop": set(bench.loop_summary([0.0], [(0.0, 0.0)], [], [], 0, 0, 1.0))}
+    failed, out = [], {}
+    for kind, r in bench_res.items():
+        res = r["result"]
+        label = {"pipeline": f"(c) phase 2 at {BENCH_PIPELINE_FRAMES} frames", "loop": "(d) phase 3"}[kind]
+        took = "not done" if r["s"] is None else f"{r['s']:.1f} s in its process"
+        log(f"bench: {label}: exit code {r['rc']}; {took}, done {r['done']:.1f} s after it started (beside phases "
+            f"12-18); K1 launches {r['launches']}; {json.dumps(res)} [{card}]")
+        out[kind] = dict(result=res, launches=r["launches"], s=r["s"])
+        if r.get("breakdown"):
+            out[kind]["breakdown"] = r["breakdown"]
+            log(f"bench: {label}: the frame's parts, host ms over the window (median / p95 / worst): "
+                + "; ".join(f"{run}: " + ", ".join(f"{part} {v['median']:.1f} / {v['p95']:.1f} / {v['worst']:.1f} "
+                                                  f"({v['n']})" for part, v in parts.items() if v)
+                            for run, parts in r["breakdown"].items()) + f" [{card}]")
+        if r["rc"] != 0 or res is None:
+            failed.append(f"bench {label}: exit code {r['rc']}")
+            continue
+        missing = sorted(keys[kind] - set(res))
+        nonfinite = [k for k, v in res.items() if isinstance(v, float) and not np.isfinite(v)]
+        if missing or r["launches"] == 0:
+            failed.append(f"bench {label}: keys missing {missing}, K1 launches {r['launches']}")
+        if kind == "pipeline" and (nonfinite or res["pipeline_depth"] != 2 or r["launch"] is None
+                                   or res["pipeline_tracked_frames"] < BENCH_MIN_TRACKED
+                                   or res["pipeline_kf_frames"] < 1):
+            failed.append(f"bench {label}: not finite {nonfinite}, depth {res['pipeline_depth']}, tracked "
+                          f"{res['pipeline_tracked_frames']} (gate {BENCH_MIN_TRACKED}), keyframe frames "
+                          f"{res['pipeline_kf_frames']} (gate 1), launch captured {r['launch'] is not None}")
+    return out, failed
 
 
 # phase 15, mdBRIEF: the system recipe with mdBRIEF's learned stability masks
@@ -2242,13 +2446,11 @@ def phase_resume(card, world, dataset, map_path, live):
     return out, failed
 
 
-# phase 18, the large-map BA (C6): make_large_ba_problem's default, as
-# bench_ba.py times it (sorted by point id, 10 LM iterations of 20 PCG steps,
-# gain_eps=0 so that every iteration runs, the rig fixed). The JAX package's
-# final cost on the CPU (tests/torch_large_ba_reference.py) and the gates.
-LARGE_BA = dict(n_kfs=64, n_points=50_000, n_obs=500_000, seed=0)
-LARGE_BA_ITERS, LARGE_BA_CG = 10, 20
-LARGE_BA_TIMED = 3
+# phase 18, the large-map BA (C6): make_large_ba_problem's default through
+# the port's bench_ba (sorted by point id, 10 LM iterations of 20 PCG steps,
+# gain_eps=0 so that every iteration runs, the rig fixed; one warm solve,
+# one timed). The JAX package's final cost on the CPU
+# (tests/torch_large_ba_reference.py) and the gates.
 LARGE_BA_JAX_COST = 212558.140625
 LARGE_BA_COST_GATE = 0.01          # relative, against LARGE_BA_JAX_COST
 LARGE_BA_SHARDED_REL = 1e-5        # the point-sharded world of one against the single solve
@@ -2269,73 +2471,54 @@ def rank_worker():
     return mod
 
 
-def synced_s(fn):
-    """(fn(), seconds on the host clock between two synchronisations)."""
-    import torch
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
-
-
-def lm_rate(fn):
-    """One warm run, then LARGE_BA_TIMED timed ones: (the warm run's output,
-    the timed runs' seconds, their outputs all equal to the warm one's)."""
-    import torch
-
-    ref, _ = synced_s(fn)
-    runs = [synced_s(fn) for _ in range(LARGE_BA_TIMED)]
-    same = all(all(torch.equal(a, b) for a, b in zip(out[0], ref[0])) and torch.equal(out[1], ref[1])
-               for out, _ in runs)
-    return ref, [s for _, s in runs], same
-
-
 def rel_diff(a, b):
     return max(float((x - y).abs().max() / y.abs().max().clamp_min(1e-30)) for x, y in zip(a, b))
 
 
 def phase_large_ba(dev, card, tmp):
     """Phase 18 (C6). (a) lm_solve on the card at 64 keyframes / 50k points /
-    500k rows: LM iterations/s (median of LARGE_BA_TIMED runs after a warm
-    one), the final cost within 1 % of the JAX package's on the CPU, one LM
-    iteration under torch.profiler; (b) a world of one rank over NCCL in
+    500k rows through bench_ba (its problem, config and warm + timed pair):
+    LM iterations/s, the final cost within 1 % of the JAX package's on the
+    CPU, one LM iteration under torch.profiler; (b) a world of one rank over NCCL in
     this process: distributed_bundle_adjust bit-identical to (a),
     point_sharded_bundle_adjust within 1e-5, each one's iterations/s; (c)
     two ranks on the one card over gloo with CUDA tensors
     (tests/torch_multihost_worker.py): the multihost test's problem through
     multihost_bundle_adjust and point_sharded_bundle_adjust, both ranks
     bit-identical, poses within 5e-3 of the single-device solve and 2e-2 of
-    the ground truth; (d) in (c)'s group, the reference's dry-run asserts.
-    Returns (results, failures)."""
+    the ground truth; (d) in (c)'s group, the package's dry run
+    (graft_entry.dryrun_multichip: the reference's asserts). Returns
+    (results, failures)."""
     import torch
     import torch.distributed as dist
 
-    from multicol_slam_tpu_torch.optim.lm import LMConfig, lm_solve
+    from multicol_slam_tpu_torch import bench_ba
+    from multicol_slam_tpu_torch.optim.lm import lm_solve
     from multicol_slam_tpu_torch.parallel.ba import distributed_bundle_adjust, make_mesh, point_sharded_bundle_adjust
-    from multicol_slam_tpu_torch.parallel.distributed import init_distributed, make_large_ba_problem
+    from multicol_slam_tpu_torch.parallel.distributed import free_address, init_distributed
 
     worker = rank_worker()
     failed, out = [], {}
     t0 = time.perf_counter()
-    noisy, _, obs, free = make_large_ba_problem(**LARGE_BA, device="cpu")
-    order = torch.argsort(obs.pt, stable=True)                      # bench_ba.py:63-64
-    obs = type(obs)(*(c[order] for c in obs))
-    noisy, obs, free = (type(t)(*(x.to(dev) if torch.is_tensor(x) else x for x in t)) for t in (noisy, obs, free))
-    cfg = LMConfig(max_iters=LARGE_BA_ITERS, cg_iters=LARGE_BA_CG, gain_eps=0.0)
-    log(f"large BA: make_large_ba_problem({LARGE_BA}) on the host, sorted by point id, on the card in "
+    noisy, obs, free = bench_ba.sorted_problem(**bench_ba.PROBLEM, device=dev)
+    cfg, n_lm = bench_ba.CONFIG, bench_ba.N_LM
+    log(f"large BA: bench_ba.sorted_problem({bench_ba.PROBLEM}) on the host, on the card in "
         f"{time.perf_counter() - t0:.2f} s: {noisy.poses.shape[0]} keyframes, {noisy.points.shape[0]} points, "
-        f"{obs.kf.shape[0]} rows ({int(obs.valid.sum())} valid); {LARGE_BA_ITERS} LM iterations of {LARGE_BA_CG} "
+        f"{obs.kf.shape[0]} rows ({int(obs.valid.sum())} valid); {n_lm} LM iterations of {cfg.cg_iters} "
         f"PCG steps, gain_eps 0")
 
-    (ref, cost), secs, same = lm_rate(lambda: lm_solve(noisy, obs, free, cfg))
-    rate = LARGE_BA_ITERS / float(np.median(secs))
+    def rate_of(solve):
+        """bench_ba's warm + timed pair: ((params, cost), LM iterations/s, the
+        timed run's seconds, whether it equals the warm one)."""
+        out_, secs_, same_ = bench_ba.warm_and_timed(solve, dev)
+        return out_, n_lm / secs_, secs_, same_
+
+    (ref, cost), rate, secs, same = rate_of(lambda: lm_solve(noisy, obs, free, cfg))
     rel = float(cost) / LARGE_BA_JAX_COST - 1.0
-    log(f"large BA: (a) lm_solve: {rate:.3f} LM iterations/s (median of {LARGE_BA_TIMED} runs: "
-        f"{', '.join(f'{s:.4f}' for s in secs)} s for {LARGE_BA_ITERS}); final cost {float(cost)!r} (the JAX package "
-        f"on the CPU {LARGE_BA_JAX_COST!r}: {rel:+.3e}, gate {LARGE_BA_COST_GATE:.0%}); runs equal to the warm one: "
-        f"{same}; peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
+    log(f"large BA: (a) lm_solve: {rate:.3f} LM iterations/s ({secs:.4f} s for {n_lm}, after a warm run); final "
+        f"cost {float(cost)!r} (the JAX package on the CPU {LARGE_BA_JAX_COST!r}: {rel:+.3e}, gate "
+        f"{LARGE_BA_COST_GATE:.0%}); the timed run equal to the warm one: {same}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
     if not abs(rel) <= LARGE_BA_COST_GATE or not all(torch.isfinite(x).all() for x in ref):
         failed.append(f"large BA (a): final cost {float(cost)} against {LARGE_BA_JAX_COST} ({rel:+.3e})")
     out["single"] = dict(its_per_s=rate, seconds=secs, cost=float(cost), cost_rel_jax=rel, runs_equal=same)
@@ -2351,27 +2534,27 @@ def phase_large_ba(dev, card, tmp):
     prof.export_chrome_trace(path)
     busy = trace_busy(path)
     top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:6]
-    log(f"large BA: (a) one LM iteration under torch.profiler ({LARGE_BA_CG} PCG steps, the segments' sort and the "
+    log(f"large BA: (a) one LM iteration under torch.profiler ({cfg.cg_iters} PCG steps, the segments' sort and the "
         f"starting cost included): {busy['kernels']} CUDA kernels, kernel time {busy['kernel_ms']:.3f} ms of "
         f"{busy['wall_ms']:.3f} ms wall, device-busy share {busy['busy_share']:.4f}; by device time: "
         + "; ".join(f"{e.key} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top) + f" [{card}]")
     out["profile"] = busy
 
-    init_distributed(f"127.0.0.1:{worker.free_port()}", 1, 0, device=dev)
+    init_distributed(free_address(), 1, 0, device=dev)
     try:
         mesh = make_mesh(1, device=dev)
         backend = dist.get_backend()
-        (rows, rows_cost), rows_s, rows_same = lm_rate(lambda: distributed_bundle_adjust(noisy, obs, free, mesh, cfg))
-        (pts, pts_cost), pts_s, pts_same = lm_rate(lambda: point_sharded_bundle_adjust(noisy, obs, free, mesh, cfg))
+        (rows, rows_cost), rows_rate, rows_s, rows_same = rate_of(
+            lambda: distributed_bundle_adjust(noisy, obs, free, mesh, cfg))
+        (pts, pts_cost), pts_rate, pts_s, pts_same = rate_of(
+            lambda: point_sharded_bundle_adjust(noisy, obs, free, mesh, cfg))
     finally:
         dist.destroy_process_group()
-    rows_rate = LARGE_BA_ITERS / float(np.median(rows_s))
-    pts_rate = LARGE_BA_ITERS / float(np.median(pts_s))
     rows_equal = all(torch.equal(a, b) for a, b in zip(rows, ref)) and torch.equal(rows_cost, cost)
     pts_rel = max(rel_diff(pts, ref), abs(float(pts_cost) / float(cost) - 1.0))
     log(f"large BA: (b) a world of one rank over {backend}: distributed_bundle_adjust {rows_rate:.3f} LM "
-        f"iterations/s ({', '.join(f'{s:.4f}' for s in rows_s)} s), bit-identical to (a): {rows_equal}; "
-        f"point_sharded_bundle_adjust {pts_rate:.3f} LM iterations/s ({', '.join(f'{s:.4f}' for s in pts_s)} s), "
+        f"iterations/s ({rows_s:.4f} s), bit-identical to (a): {rows_equal}; "
+        f"point_sharded_bundle_adjust {pts_rate:.3f} LM iterations/s ({pts_s:.4f} s), "
         f"relative difference to (a) {pts_rel:.3e} (gate {LARGE_BA_SHARDED_REL}); (a) {rate:.3f}: the collectives "
         f"cost {1e3 / rows_rate - 1e3 / rate:+.3f} / {1e3 / pts_rate - 1e3 / rate:+.3f} ms an LM iteration [{card}]")
     if backend != "nccl" or not rows_equal or not pts_rel <= LARGE_BA_SHARDED_REL or not (rows_same and pts_same):
@@ -2403,7 +2586,8 @@ def phase_large_ba(dev, card, tmp):
         + "; ".join(f"{k} pose error {v['single']:.3e} to the single solve, {v['gt']:.3e} to the ground truth, "
                     f"{v['s']:.3f} s" for k, v in res.items())
         + f"; ranks bit-identical: {not bad} {bad or ''}")
-    log(f"large BA: (d) the dry run in (c)'s group: cost {float(a['1/cost0']):.4f} -> "
+    log(f"large BA: (d) the package's dry run (graft_entry.dryrun_multichip, {float(a['1/s']):.2f} s) in (c)'s "
+        f"group: cost {float(a['1/cost0']):.4f} -> "
         + "; ".join(f"{k} {v['cost']:.6f} (max difference to the single solve {v['err']:.3e})" for k, v in dry.items()))
     if str(a["backend"]) != "gloo" or not str(a["device"]).startswith("cuda") or bad:
         failed.append(f"large BA (c): backend {a['backend']}, device {a['device']}, ranks differ on {bad}")
@@ -2430,10 +2614,23 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from multicol_slam_tpu_torch.bench import card_line
     from multicol_slam_tpu_torch.ops.best_match import (
         BODY, KERNEL, QUERY_TILE, masked_best_match, masked_best_match_cams, masked_best_match_cams_plain,
         masked_best_match_plain, target_chunk,
     )
+
+    t_start = time.perf_counter()
+    phase_s = {}
+
+    def timed(name, fn, *a, **kw):
+        """fn(*a, **kw), its wall seconds printed on a line of their own."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            phase_s[name] = time.perf_counter() - t0
+            log(f"time: phase {name}: {phase_s[name]:.1f} s")
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -2450,37 +2647,46 @@ def main(argv=None):
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        max_err = phase_kernel(dev)
+        max_err = timed("2 kernel", phase_kernel, dev)
         state = build_slice(dev)
-        launches, frame, cap_track = phase_slice(dev, state)
-        tk = phase_timing(dev, state, frame, card)
-        k2_err = phase_k2(dev)
+        launches, frame, cap_track = timed("3 slice", phase_slice, dev, state)
+        tk = timed("4 timing (the bench's phase 1)", phase_timing, dev, state, frame, card)
+        entry = timed("19 (a) graft entry", phase_graft_entry, dev, card)
+        k2_err = timed("5 k2", phase_k2, dev)
         boot = build_bootstrap(dev)
-        out = phase_bootstrap(dev, boot)
-        bt = phase_bootstrap_timing(dev, boot, out, card)
-        system = phase_system(dev, boot, card, args.reloc_dump)
-        loop = phase_loop(dev, card, beside_pool=lambda: start_beside(tmp))
-        async_loop, failed, worker_loop = phase_async_loop(dev, card, loop)
+        out = timed("6 bootstrap", phase_bootstrap, dev, boot)
+        bt = timed("7 bootstrap timing", phase_bootstrap_timing, dev, boot, out, card)
+        system = timed("10 system", phase_system, dev, boot, card, args.reloc_dump)
+        loop = timed("11 loop (14, 15 (d), 17 and 13's dataset beside it)", phase_loop, dev, card,
+                     beside_pool=lambda: start_beside(tmp))
+        wait_bench = start_bench(tmp, str(dev))
+        async_loop, failed, worker_loop = timed("12 async loop", phase_async_loop, dev, card, loop)
         map_path = os.path.join(tmp, "resume_map.npz")
-        cli_out, failed_cli, worker_cli, cli_sync = phase_cli(dev, boot, card, loop["beside"]["dataset"], map_path)
+        cli_out, failed_cli, worker_cli, cli_sync = timed("13 cli", phase_cli, dev, boot, card,
+                                                          loop["beside"]["dataset"], map_path)
         evals, failed_eval = phase_eval(loop["beside"])
         p17, failed_17 = phase_selfcal_longrun(loop["beside"], card)
-        md, failed_md, md_captured = phase_mdbrief(dev, boot, card, loop["beside"]["dataset"])
-        resume, failed_resume = phase_resume(card, boot[0], loop["beside"]["dataset"], map_path, cli_sync.store)
-        _, failed_18 = phase_large_ba(dev, card, tmp)
-        failed += failed_cli + failed_eval + failed_17 + failed_md + failed_resume + failed_18
+        md, failed_md, md_captured = timed("15 mdbrief", phase_mdbrief, dev, boot, card, loop["beside"]["dataset"])
+        resume, failed_resume = timed("16 resume", phase_resume, card, boot[0], loop["beside"]["dataset"], map_path,
+                                      cli_sync.store)
+        _, failed_18 = timed("18 large BA", phase_large_ba, dev, card, tmp)
+        bench_res = timed("19 (c)(d) the rest of the wait for the bench's processes", wait_bench)
+        bench_out, failed_19 = phase_bench(bench_res, card)
+        failed += failed_cli + failed_eval + failed_17 + failed_19 + failed_md + failed_resume + failed_18
         if loop["beside"]["writer_rc"] != 0:
             failed.append(f"the CLI dataset's writer exited with {loop['beside']['writer_rc']}")
         worker_rows = [(name, a) for name, a in (("CLI async fusion, worker stream", worker_cli),
                                                  ("async loop (B) fusion, worker stream", worker_loop)) if a]
-        captured = phase_captured(dev, [("tracking stage 1", cap_track[0]), ("tracking stage 2", cap_track[1]),
-                                        ("bootstrap forward", out["captured"][0]),
-                                        ("bootstrap backward", out["captured"][1]),
-                                        ("system fusion", system["fuse"]),
-                                        ("loop Sim3 check, radius 10", loop["captured"]["loop_sim3_check"]),
-                                        ("loop SearchAndFuse, radius 6", loop["captured"]["loop_search_and_fuse"])]
-                                  + worker_rows + md_captured, card)
-        sweep = phase_split([
+        pipe = bench_res["pipeline"]["launch"]
+        bench_rows = [("bench pipeline, the tracker's last launch", load_launch(pipe, dev))] if pipe else []
+        captured = timed("8 captured", phase_captured, dev, [
+            ("tracking stage 1", cap_track[0]), ("tracking stage 2", cap_track[1]),
+            ("bootstrap forward", out["captured"][0]), ("bootstrap backward", out["captured"][1]),
+            ("system fusion", system["fuse"]),
+            ("loop Sim3 check, radius 10", loop["captured"]["loop_sim3_check"]),
+            ("loop SearchAndFuse, radius 6", loop["captured"]["loop_search_and_fuse"]),
+            ("graft entry, track_stage", entry["captured"])] + worker_rows + md_captured + bench_rows, card)
+        sweep = timed("9 split", phase_split, [
             ("K1 tracking stage 1", masked_best_match_cams, masked_best_match_cams_plain, cap_track[0]),
             ("K1 bootstrap forward", masked_best_match_cams, masked_best_match_cams_plain, out["captured"][0]),
             ("K2 Q=T=800", masked_best_match, masked_best_match_plain, out["fwd"][0]),
@@ -2507,6 +2713,8 @@ def main(argv=None):
         r = resume[run]
         cli_paths.update({f"resume_{run}_{role(th)}": n for th, n in r["launches_by_thread"].items()}
                          if run != "profile" else {"resume_profile_tracker": r["launches"]})
+    cli_paths.update({"graft_entry": entry["launches"], "bench_pipeline": bench_out["pipeline"]["launches"],
+                      "bench_loop": bench_out["loop"]["launches"]})
     log(json.dumps({"kernels": [{
         "name": "masked_best_match_cams",
         "route": "cuda",
@@ -2549,6 +2757,8 @@ def main(argv=None):
         "mdbrief": md,
         "resume": resume,
         "selfcal_longrun": p17,
+        "bench": dict(bench_out, phase1=tk["bench_phase1"]),
+        "graft_entry": {k: v for k, v in entry.items() if k != "captured"},
     }, {
         "name": "masked_best_match",
         "route": "cuda",
@@ -2570,6 +2780,8 @@ def main(argv=None):
         "body": BODY,
         "split_sweep": [r for r in sweep if r["launch"].startswith("K2")],
     }]}))
+    log(f"time: the whole script {time.perf_counter() - t_start:.1f} s; by phase "
+        + json.dumps({k: round(v, 1) for k, v in phase_s.items()}))
     log(f"card: {card}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

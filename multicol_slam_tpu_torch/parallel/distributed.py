@@ -24,6 +24,7 @@ tests/test_torch_parallel.py).
 """
 from __future__ import annotations
 
+import socket
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -54,6 +55,14 @@ def _rank_device(device, rank: int) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", rank % torch.cuda.device_count())
     return dev
+
+
+def free_address() -> str:
+    """"127.0.0.1:<port>" with a port free on this host: an address for
+    rank 0 of a group whose ranks all run here."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{s.getsockname()[1]}"
 
 
 def init_distributed(coordinator_address: str, num_processes: int, process_id: int,

@@ -57,6 +57,9 @@ MODULES = {
     # distributed BA over torch.distributed
     "parallel/__init__": "parallel/__init__", "parallel/ba": "parallel/ba",
     "parallel/distributed": "parallel/distributed",
+    # the bench, the BA bench and the graft entry, whose counterparts are the
+    # repository's root bench.py, bench_ba.py and __graft_entry__.py
+    "bench": None, "bench_ba": None, "graft_entry": None,
 }
 
 
@@ -124,7 +127,7 @@ def test_package_data_lists_every_source():
 def _entry_points():
     """Each constructor of the port that creates tensors -> (the callable,
     a call of it with `**kw` and small arguments)."""
-    from multicol_slam_tpu_torch import convert
+    from multicol_slam_tpu_torch import bench, bench_ba, convert, graft_entry
     from multicol_slam_tpu_torch.io import synthetic
     from multicol_slam_tpu_torch.models.camera import OmniCamera
     from multicol_slam_tpu_torch.ops import fast, ransac
@@ -155,6 +158,12 @@ def _entry_points():
             **kw).uv),
         "distributed.make_large_ba_problem": (distributed.make_large_ba_problem, lambda **kw: (
             distributed.make_large_ba_problem(n_kfs=2, n_points=8, n_obs=16, **kw)[0].points)),
+        "graft_entry.entry": (graft_entry.entry, lambda **kw: graft_entry.entry(**kw)[1][0]),
+        "graft_entry.dryrun_problem": (graft_entry.dryrun_problem,
+                                       lambda **kw: graft_entry.dryrun_problem(**kw)[0].points),
+        "bench.synthetic_lafida_rig": (bench.synthetic_lafida_rig, lambda **kw: bench.synthetic_lafida_rig(**kw).Mc),
+        "bench_ba.sorted_problem": (bench_ba.sorted_problem, lambda **kw: bench_ba.sorted_problem(
+            n_kfs=2, n_points=8, n_obs=16, **kw)[0].points),
         "MultiColSLAM": (MultiColSLAM, lambda **kw: MultiColSLAM(
             synthetic.make_synthetic_rig(2, device=kw.get("device", "cuda")), SlamSettings(),
             use_loop_closing=False, **kw).generator),
@@ -164,7 +173,8 @@ def _entry_points():
 ENTRY_POINTS = ["OmniCamera.from_params", "ExtractorTables", "convert.rig_from_numpy",
                 "convert.local_points_from_numpy", "convert.frame_features_from_numpy",
                 "ransac.sample_indices", "fast.border_mask", "synthetic.make_synthetic_rig",
-                "synthetic.synthesize_features", "distributed.make_large_ba_problem", "MultiColSLAM"]
+                "synthetic.synthesize_features", "distributed.make_large_ba_problem", "graft_entry.entry",
+                "graft_entry.dryrun_problem", "bench.synthetic_lafida_rig", "bench_ba.sorted_problem", "MultiColSLAM"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -182,7 +192,7 @@ def test_entry_point_defaults_to_the_card(name):
             call()
 
 
-@pytest.mark.parametrize("entry", ["cli", "eval", "longrun"])
+@pytest.mark.parametrize("entry", ["cli", "eval", "longrun", "bench", "bench_ba"])
 def test_entries_raise_without_a_card(entry, tmp_path):
     """The command lines run on the card: without one, main() with no
     device raises before it renders, tracks or trains anything."""
@@ -195,7 +205,7 @@ def test_entries_raise_without_a_card(entry, tmp_path):
     settings = tmp_path / "s.yaml"
     settings.write_text(lafida_settings(5))
     argv = {"cli": ["no_voc.yml", str(settings), str(tmp_path), str(tmp_path)], "eval": ["--selfcal"],
-            "longrun": ["--frames", "5", "--out", str(tmp_path / "l.jsonl")]}[entry]
+            "longrun": ["--frames", "5", "--out", str(tmp_path / "l.jsonl")], "bench": [], "bench_ba": []}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         importlib.import_module(f"multicol_slam_tpu_torch.{entry}").main(argv)
     assert not (tmp_path / "l.jsonl").exists()

@@ -325,7 +325,8 @@ def test_dryrun_asserts(world, tmp_path):
     """__graft_entry__.dryrun_multichip's contract on its tiny problem (4
     poses, 32 points, 2 cameras, 256 rows, 2 LM / 4 CG iterations): both
     layouts lower the cost below half its start and stay within 5e-3 of the
-    single-device lm_solve; every rank returns the same parameters."""
+    single-device lm_solve; every rank returns the same parameters. The
+    worker's job runs the package's graft_entry.dryrun_multichip."""
     outs = run_ranks(world, "dryrun", str(tmp_path / "dry"), timeout=120)
     o = outs[0]
     for layout in ("rows", "points"):

@@ -15,9 +15,11 @@ process group runs in turn. Jobs:
           multihost test's problem), 10 LM iterations: `multihost` (padded,
           this rank's row shard, multihost_bundle_adjust), `points`
           (point_sharded_bundle_adjust) and, on rank 0, `single` (lm_solve);
-  dryrun  the reference's dry-run problem (__graft_entry__.dryrun_multichip:
-          4 poses, 32 points, 2 cameras, 256 rows, 2 LM / 4 CG iterations):
-          `rows` (distributed_bundle_adjust), `points` and `single`;
+  dryrun  the package's dry run (multicol_slam_tpu_torch.graft_entry.
+          dryrun_multichip, the counterpart of __graft_entry__'s: 4 poses,
+          32 points, 2 cameras, 256 rows, 2 LM / 4 CG iterations; it raises
+          where the reference asserts): `rows` (distributed_bundle_adjust),
+          `points` and `single`, and `i/s` the dry run's seconds;
   cases   the problems of --cases: `rows`, `points`, both or none, as each
           case's `i/layouts` says.
 Imports torch and the port only (the card's machine has no JAX); each rank
@@ -26,7 +28,6 @@ and returns their outputs.
 """
 import argparse
 import os
-import socket
 import subprocess
 import sys
 import time
@@ -36,44 +37,20 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from multicol_slam_tpu_torch.optim.lm import LMConfig, _lm_cost, lm_solve  # noqa: E402
-from multicol_slam_tpu_torch.optim.problem import BAParams, FreeMask, Observations, project_obs  # noqa: E402
+from multicol_slam_tpu_torch.graft_entry import dryrun_multichip  # noqa: E402
+from multicol_slam_tpu_torch.optim.lm import LMConfig, lm_solve  # noqa: E402
+from multicol_slam_tpu_torch.optim.problem import BAParams, FreeMask, Observations  # noqa: E402
 from multicol_slam_tpu_torch.parallel.ba import (  # noqa: E402
     distributed_bundle_adjust, make_mesh, pad_observations, point_sharded_bundle_adjust,
 )
 from multicol_slam_tpu_torch.parallel.distributed import (  # noqa: E402
-    init_distributed, make_large_ba_problem, multihost_bundle_adjust, shard_rows_for_process,
+    free_address, init_distributed, make_large_ba_problem, multihost_bundle_adjust, shard_rows_for_process,
 )
 
 PARAMS = ("poses", "points", "mc", "intr")
 OBS = ("kf", "pt", "cam", "uv", "inv_sigma2", "valid")
 LARGE = dict(n_kfs=8, n_points=400, n_obs=4000, noise_px=0.2, seed=3)
 LARGE_CONFIG = LMConfig(max_iters=10, cg_iters=20)
-
-
-def dryrun_problem(device):
-    """__graft_entry__.dryrun_multichip's problem, projected by the port:
-    (noisy params, obs, free, config)."""
-    from multicol_slam_tpu_torch.models.camera import OmniCamera
-
-    rng = np.random.default_rng(0)
-    K, P, C = 4, 32, 2
-    cams = OmniCamera.from_params([[-120.0, 0.0, 0.002, 0.0, 0.0]] * C, [[115.0, 60.0, 5.0] + [0.0] * 9] * C,
-                                  [[1.0, 0.0, 0.0]] * C, [[128.0, 96.0]] * C, [[256, 192]] * C, device="cpu")
-    poses = np.zeros((K, 6), np.float32)
-    poses[:, 3] = np.linspace(0, 0.5, K)
-    points = (rng.normal(size=(P, 3)) * 1.5 + np.array([0, 0, 6.0])).astype(np.float32)
-    mc = np.zeros((C, 6), np.float32)
-    mc[:, 3] = [-0.1, 0.1]
-    params = BAParams(torch.from_numpy(poses), torch.from_numpy(points), torch.from_numpy(mc), cams.to_vector())
-    kf, pt, cam = (torch.from_numpy(a.ravel()) for a in np.meshgrid(np.arange(K), np.arange(P), np.arange(C),
-                                                                     indexing="ij"))
-    uv, z = project_obs(params.poses[kf], params.mc[cam], params.intr[cam], params.points[pt])
-    obs = Observations(kf.int(), pt.int(), cam.int(), uv, torch.ones(len(kf)), z > 0)
-    free = FreeMask(torch.tensor([False] + [True] * (K - 1)), torch.ones(P, dtype=torch.bool))
-    noisy = params._replace(points=params.points + 0.02)
-    return tuple(type(t)(*(x.to(device) if torch.is_tensor(x) else x for x in t)) for t in (noisy, obs, free)) + (
-        LMConfig(max_iters=2, cg_iters=4),)
 
 
 def load_cases(path, device):
@@ -89,18 +66,12 @@ def load_cases(path, device):
     return cases
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def run_ranks(world, job, out, device="cpu", backend=None, cases=None, timeout=300.0):
     """Run `job` in `world` rank processes of this script; each writes its
     log beside OUT. Waits at most `timeout` seconds, stops every rank once
     one fails, and raises with the failed rank's log. Returns the ranks'
     outputs (dicts of arrays), in rank order."""
-    address = f"127.0.0.1:{free_port()}"
+    address = free_address()
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs, logs = [], []
     try:
@@ -168,9 +139,17 @@ def main(argv=None):
             cases.append((noisy, obs, free, LARGE_CONFIG, ["multihost", "points"] + single))
             extra[f"{i}/gt_poses"] = gt.poses.cpu().numpy()
         elif job == "dryrun":
-            noisy, obs, free, cfg = dryrun_problem(dev)
-            cases.append((noisy, obs, free, cfg, ["rows", "points"] + single))
-            extra[f"{i}/cost0"] = float(_lm_cost(noisy, obs, cfg))
+            # the package's dry run (it asserts the reference's contract); its
+            # solves are written out as a case's layouts
+            t0 = time.perf_counter()
+            dry = dryrun_multichip(args.world, device=dev)
+            extra[f"{i}/cost0"] = dry["cost0"]
+            for layout in ["rows", "points"] + single:
+                p, cost = dry[layout]
+                extra.update({f"{i}/{layout}/poses": p.poses.cpu().numpy(),
+                              f"{i}/{layout}/points": p.points.cpu().numpy(), f"{i}/{layout}/cost": float(cost)})
+            extra[f"{i}/s"] = time.perf_counter() - t0
+            cases.append((None, None, None, None, []))
         else:
             cases += load_cases(args.cases, dev)
     out = dict(extra, n=len(cases), device=str(dev), backend=torch.distributed.get_backend())
