@@ -1,5 +1,5 @@
 // Host-side map-table scans of the MultiCol-SLAM map store (a copy of the
-// reference's native/mapops.cpp, keeping the four scans the port calls).
+// reference's native/mapops.cpp, keeping the scans the port calls).
 //
 // The map is flat arrays: kf_point[K, F] holds the map point of each
 // (keyframe, feature) slot, BAD_ID = -1 when none. These scans are the hot
@@ -12,9 +12,32 @@
 
 #include <cstdint>
 #include <cstring>
+#include <unordered_set>
 #include <vector>
 
 extern "C" {
+
+// counts[j] = number of slots of keyframe j whose point keyframe k also
+// observes; 0 for k itself and for invalid keyframes. Membership is a hash
+// probe, so no point-id capacity is needed (covisibility_counts2 below is
+// the bitmap scan the map store calls).
+void covisibility_counts(const int32_t* kf_point, const uint8_t* kf_valid,
+                         int64_t K, int64_t F, int64_t k,
+                         int32_t* counts /* [K] out */) {
+  std::unordered_set<int32_t> pts;
+  const int32_t* row_k = kf_point + k * F;
+  for (int64_t f = 0; f < F; ++f)
+    if (row_k[f] >= 0) pts.insert(row_k[f]);
+  for (int64_t j = 0; j < K; ++j) {
+    counts[j] = 0;
+    if (j == k || !kf_valid[j]) continue;
+    const int32_t* row = kf_point + j * F;
+    int32_t c = 0;
+    for (int64_t f = 0; f < F; ++f)
+      if (row[f] >= 0 && pts.count(row[f])) ++c;
+    counts[j] = c;
+  }
+}
 
 // counts[j] = number of slots of keyframe j whose point keyframe k also
 // observes (the covisibility weights, cMultiKeyFrame.cpp:412-500); 0 for k

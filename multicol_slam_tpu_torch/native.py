@@ -27,6 +27,7 @@ _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 _i64 = ctypes.c_int64
 _ARGTYPES = {
+    "covisibility_counts": ([_i32p, _u8p, _i64, _i64, _i64, _i32p], None),
     "covisibility_counts2": ([_i32p, _u8p, _i64, _i64, _i64, _i64, _i32p], None),
     "redundancy_counts_fast": ([_i32p, _i32p, _u8p, _i64, _i64, _i64, _i32p], None),
     "vote_counts": ([_i32p, _u8p, _i64, _i64, _u8p, _i64, _i32p], None),
@@ -98,19 +99,27 @@ def _point_mask(pt_ids, n_points: int) -> np.ndarray:
 
 
 def covisibility_counts(kf_point: np.ndarray, kf_valid: np.ndarray, k: int,
-                        n_points: int) -> np.ndarray:
+                        n_points: int = 0) -> np.ndarray:
     """counts[j] = slots of keyframe j holding a point that keyframe k also
-    observes; 0 for k and for invalid keyframes. `n_points` is the point-id
-    capacity."""
+    observes; 0 for k and for invalid keyframes. `n_points` > 0 is the
+    point-id capacity and takes the dense-bitmap scan (ids >= it are not
+    counted); 0 takes the hash-probe scan over every id."""
     K, F = kf_point.shape
     out = np.zeros(K, np.int32)
-    _LIBRARY.get().covisibility_counts2(*_table(kf_point, kf_valid), K, F, int(k), int(n_points), out)
+    table = _table(kf_point, kf_valid)
+    if n_points > 0:
+        _LIBRARY.get().covisibility_counts2(*table, K, F, int(k), int(n_points), out)
+    else:
+        _LIBRARY.get().covisibility_counts(*table, K, F, int(k), out)
     return out
 
 
-def covisibility_counts_plain(kf_point, kf_valid, k: int, n_points: int) -> np.ndarray:
+def covisibility_counts_plain(kf_point, kf_valid, k: int, n_points: int = 0) -> np.ndarray:
     pts = kf_point[k]
-    pts = np.unique(pts[(pts >= 0) & (pts < n_points)])
+    pts = pts[pts >= 0]
+    if n_points > 0:
+        pts = pts[pts < n_points]
+    pts = np.unique(pts)
     counts = (np.isin(kf_point, pts) & (kf_point >= 0)).sum(axis=1).astype(np.int32)
     counts[k] = 0
     counts[~kf_valid.astype(bool)] = 0

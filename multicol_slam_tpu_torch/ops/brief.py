@@ -17,7 +17,7 @@ parameters carry the same leading axes without the keypoint axis.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -69,9 +69,8 @@ def ic_angles(img: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     atan2(m01, m10) over the radius-15 circle around each keypoint, the
     31x31 window clamped to the image. img [..., H, W] (H, W >= 47);
     centers [..., K, 2] int (u, v) -> [..., K] radians."""
-    wx, wy, _ = (torch.as_tensor(a, device=img.device) for a in _ic_angle_weights())
     patches, r0, c0 = gather_sample_patches(img, centers)
-    return ic_angles_from_patches(patches, centers, r0, c0, wx, wy)
+    return ic_angles_from_patches(patches, centers, r0, c0)
 
 
 def ic_angles_dense(imgs: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
@@ -83,9 +82,13 @@ def ic_angles_dense(imgs: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     return ic_angles(imgs, centers)
 
 
-def ic_angles_from_patches(patches, centers, r0, c0, wx: torch.Tensor, wy: torch.Tensor) -> torch.Tensor:
+def ic_angles_from_patches(patches, centers, r0, c0, wx: Optional[torch.Tensor] = None,
+                           wy: Optional[torch.Tensor] = None) -> torch.Tensor:
     """atan2(m01, m10) over the 31x31 window around each keypoint inside its
-    sample patch (window clamped to the patch). wx, wy: `_ic_angle_weights`."""
+    sample patch (window clamped to the patch). wx, wy: `_ic_angle_weights`
+    (made here when not given; the extractor passes its cached tables)."""
+    if wx is None or wy is None:
+        wx, wy, _ = (torch.as_tensor(a, device=patches.device) for a in _ic_angle_weights())
     P = patches.shape[-1]
     Q = 2 * HALF_PATCH + 1
     oy = torch.clamp(centers[..., 1] - r0 - HALF_PATCH, 0, P - Q)
@@ -125,18 +128,28 @@ def _rotated_offsets(pattern: torch.Tensor, angles: torch.Tensor) -> torch.Tenso
     return torch.stack([torch.round(xr), torch.round(yr)], dim=-1).to(torch.int32)
 
 
-def compute_orb_from_patches(patches, centers, r0, c0, angles, pattern: torch.Tensor) -> torch.Tensor:
-    """ORB descriptors [..., K, B] uint8; bit i is t0 < t1 of pair i of the
-    rotated `pattern` ([16 B, 2] int32, `brief_pattern(16 B)`)."""
+def _pattern_of(desc_bytes: int, pattern: Optional[torch.Tensor], device) -> torch.Tensor:
+    """`pattern`, or the [16 B, 2] table `brief_pattern(16 B)` of B =
+    desc_bytes on `device`."""
+    if pattern is not None:
+        return pattern
+    return torch.as_tensor(brief_pattern(2 * 8 * desc_bytes), device=device)
+
+
+def compute_orb_from_patches(patches, centers, r0, c0, angles, desc_bytes: int = 32,
+                             pattern: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """ORB descriptors [..., K, B] uint8, B = desc_bytes; bit i is t0 < t1 of
+    pair i of the rotated `pattern` ([16 B, 2] int32, `brief_pattern(16 B)`,
+    made here when not given; the extractor passes its cached table)."""
+    pattern = _pattern_of(desc_bytes, pattern, patches.device)
     return _pack_bits(_tests(patches, centers, _rotated_offsets(pattern, angles), r0, c0))
 
 
 def compute_orb(img: torch.Tensor, centers: torch.Tensor, angles: torch.Tensor, desc_bytes: int = 32) -> torch.Tensor:
     """Steered BRIEF (ORB) on one (blurred) level image: img [..., H, W];
     centers [..., K, 2] int; angles [..., K] -> [..., K, desc_bytes] uint8."""
-    pattern = torch.as_tensor(brief_pattern(2 * 8 * desc_bytes), device=img.device)
     patches, r0, c0 = gather_sample_patches(img, centers)
-    return compute_orb_from_patches(patches, centers, r0, c0, angles, pattern)
+    return compute_orb_from_patches(patches, centers, r0, c0, angles, desc_bytes)
 
 
 def undistort_keypoints(pol, cde, pp, a0, uv_level0: torch.Tensor) -> torch.Tensor:
@@ -176,11 +189,14 @@ def _tests(patches, centers, offsets, r0, c0) -> torch.Tensor:
 
 
 def compute_dbrief_from_patches(patches, centers, r0, c0, undist_kp, angles, invpol, cde, pp, a0,
-                                pattern: torch.Tensor, learn_masks: bool = False):
+                                desc_bytes: int = 32, learn_masks: bool = False,
+                                pattern: Optional[torch.Tensor] = None):
     """dBRIEF descriptors and, with learn_masks, the mdBRIEF stability masks:
-    (desc [..., K, B] u8, mask [..., K, B] u8). Without masks every mask is
-    0xFF, so that the masked distance is uniform. `pattern`: [16 B, 2]
-    int32, `brief_pattern(16 B)`."""
+    (desc [..., K, B] u8, mask [..., K, B] u8), B = desc_bytes. Without
+    masks every mask is 0xFF, so that the masked distance is uniform.
+    `pattern`: [16 B, 2] int32, `brief_pattern(16 B)` (made here when not
+    given; the extractor passes its cached table)."""
+    pattern = _pattern_of(desc_bytes, pattern, patches.device)
     bits = _tests(patches, centers, _distorted_offsets(pattern, undist_kp, angles, invpol, cde, pp, a0), r0, c0)
     desc = _pack_bits(bits)
     if not learn_masks:
@@ -192,11 +208,11 @@ def compute_dbrief_from_patches(patches, centers, r0, c0, undist_kp, angles, inv
     return desc, _pack_bits(stable)
 
 
-def compute_dbrief(img, centers, undist_kp, angles, invpol, cde, pp, a0, pattern: torch.Tensor,
-                   learn_masks: bool = False):
+def compute_dbrief(img, centers, undist_kp, angles, invpol, cde, pp, a0, desc_bytes: int = 32,
+                   learn_masks: bool = False, pattern: Optional[torch.Tensor] = None):
     """dBRIEF / mdBRIEF of keypoints `centers` [..., K, 2] on the (blurred)
     level image img [..., H, W]: `compute_dbrief_from_patches` on patches
     gathered here."""
     patches, r0, c0 = gather_sample_patches(img, centers)
     return compute_dbrief_from_patches(patches, centers, r0, c0, undist_kp, angles, invpol, cde, pp, a0,
-                                       pattern, learn_masks)
+                                       desc_bytes, learn_masks, pattern)

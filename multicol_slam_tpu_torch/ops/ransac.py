@@ -29,10 +29,19 @@ from multicol_slam_tpu_torch.utils.geometry import quat_to_rot, skew, triangulat
 
 
 def sample_indices(n_hyp: int, sample_size: int, n_data: int,
-                   generator: Optional[torch.Generator] = None, device=DEFAULT_DEVICE) -> torch.Tensor:
-    """[S, m] random correspondence indices, drawn with replacement (a row
-    with a repeated index only wastes its hypothesis), on the generator's
-    device, else on `device`."""
+                   generator: Optional[torch.Generator] = None, device=DEFAULT_DEVICE,
+                   weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[S, m] random correspondence indices. Without `weights`, drawn with
+    replacement (a row with a repeated index only wastes its hypothesis),
+    on the generator's device, else on `device`; with `weights` [n_data]
+    (non-negative, at least m of them > 0), each row draws m distinct
+    indices with p = weights / sum(weights), as the reference's choice
+    without replacement, on the generator's device and returned on the
+    weights' (the system's generator is a CPU one for data on the card)."""
+    if weights is not None:
+        w = weights.to(generator.device if generator is not None else weights.device, torch.float32)
+        return torch.multinomial(w.expand(n_hyp, -1), sample_size, replacement=False,
+                                 generator=generator).to(weights.device)
     device = generator.device if generator is not None else resolve_device(device)
     return torch.randint(0, max(int(n_data), 1), (n_hyp, sample_size), generator=generator,
                          device=device)
@@ -197,8 +206,7 @@ def sample_weighted(n_hyp: int, sample_size: int, valid: torch.Tensor,
                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """[S, m] indices of distinct valid rows per hypothesis (the
     reference's choice without replacement, p = valid / sum(valid))."""
-    w = valid.to(torch.float32)
-    return torch.multinomial(w.expand(n_hyp, -1), sample_size, replacement=False, generator=generator)
+    return sample_indices(n_hyp, sample_size, len(valid), generator, weights=valid)
 
 
 def ransac_noncentral_pose(

@@ -54,6 +54,14 @@ class FrameFeatures:
     dmask: torch.Tensor
     valid: torch.Tensor
 
+    @property
+    def n_cams(self) -> int:
+        return self.uv.shape[0]
+
+    @property
+    def k(self) -> int:
+        return self.uv.shape[1]
+
 
 class ExtractorTables(nn.Module):
     """Constant tables of the extractor for one image size, as buffers: the
@@ -104,10 +112,11 @@ def _extract_level(level_img, blurred, cams: OmniCamera, settings: ExtractorSett
         a0 = cams.pol[:, 0]
         undist = brief_ops.undistort_keypoints(cams.pol, cams.cde, cams.pp, a0, uv0)
         desc, dmask = brief_ops.compute_dbrief_from_patches(
-            patches, uv_l, r0, c0, undist, ang, cams.invpol, cams.cde, cams.pp, a0, tables.pattern,
-            bool(settings.learn_masks))
+            patches, uv_l, r0, c0, undist, ang, cams.invpol, cams.cde, cams.pp, a0, settings.desc_size,
+            bool(settings.learn_masks), pattern=tables.pattern)
     else:
-        desc = brief_ops.compute_orb_from_patches(patches, uv_l, r0, c0, ang, tables.pattern)
+        desc = brief_ops.compute_orb_from_patches(patches, uv_l, r0, c0, ang, settings.desc_size,
+                                                  pattern=tables.pattern)
         dmask = torch.full_like(desc, 255)
     octave = torch.full(resp.shape, level, dtype=torch.int32, device=resp.device)
     return uv0, resp, octave, ang, desc, dmask, ok

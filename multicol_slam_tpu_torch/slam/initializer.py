@@ -42,6 +42,13 @@ MIN_BASELINE_NORM = 0.06     # cMultiInitializer.cpp:183 translation gate
 REPROJ_TH = 4.0              # CheckRT reprojection gate (:200-307)
 MIN_MEDIAN_DISPARITY = 0.015  # rad; rotation-compensated parallax floor
 SCALE_CHUNK = 16             # scales scored at once by calibrate_metric_scale
+DEBUG_INIT = False           # set True to print why `bootstrap` rejects a pair
+
+
+def _why(reason: str):
+    """Print a gate's rejection when DEBUG_INIT is set."""
+    if DEBUG_INIT:
+        print(f"[bootstrap] reject: {reason}")
 
 
 class InitResult(NamedTuple):
@@ -79,7 +86,7 @@ def bootstrap(
     C, K = feats1.valid.shape
     if sampler is None:
         if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
+            generator = torch.Generator().manual_seed(0)   # the same draws on every device
         sampler = lambda cam, n: sample_indices(n_hyp, 8, n, generator)  # noqa: E731
     # masked TH_LOW when mdBRIEF masks are active
     th = (1.0 if use_masks else 2.0) * feats1.desc.shape[-1]
@@ -88,6 +95,7 @@ def bootstrap(
     match_idx = match_idx_t.cpu().numpy()
     n_total = int((match_idx >= 0).sum())
     if n_total < MIN_MATCHES:
+        _why(f"matches {n_total} < {MIN_MATCHES}")
         return None, n_total
     best = None
     for c in range(C):
@@ -103,9 +111,11 @@ def bootstrap(
         if best is None or n_inl > best[1]:
             best = (c, n_inl, res, sel)
     if best is None:
+        _why("no camera with >=30 matches")
         return None, n_total
     c, n_inl, res, sel = best
     if n_inl < 0.5 * len(sel) or n_inl < 30:
+        _why(f"essential inliers {n_inl}/{len(sel)}")
         return None, n_total
     R = res.R.cpu().numpy().astype(np.float64)
     t = res.t.cpu().numpy().astype(np.float64)
@@ -117,7 +127,9 @@ def bootstrap(
     U, _, Vt = np.linalg.svd(r1.T @ r2)
     R0 = U @ np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))]) @ Vt   # r1 ~ R0 r2
     cosd = np.clip(np.sum(r1 * (r2 @ R0.T), axis=-1), -1.0, 1.0)
-    if float(np.percentile(np.arccos(cosd), 75)) < MIN_MEDIAN_DISPARITY:
+    p75 = float(np.percentile(np.arccos(cosd), 75))
+    if p75 < MIN_MEDIAN_DISPARITY:
+        _why(f"p75 disparity {p75:.4f} < {MIN_MEDIAN_DISPARITY}")
         return None, n_total
     # triangulate the inliers in the cam1 frame (o1 = 0; cam2 centre = -R^T t)
     o2 = np.broadcast_to(-(R.T @ t), r1.shape)
@@ -130,6 +142,7 @@ def bootstrap(
     # parallax gate: baseline / median depth (the reference's norm > 0.06 gate)
     med_depth = np.median(np.linalg.norm(X[good], axis=-1)) if good.any() else 0.0
     if med_depth <= 0 or np.linalg.norm(t) / med_depth < 0.02:
+        _why(f"baseline/depth {np.linalg.norm(t) / max(med_depth, 1e-9):.4f} < 0.02")
         return None, n_total
     # CheckRT: reprojection in both views
     uv1p = cam_world_to_img(rig.cams, c, torch.tensor(X, **f32)).cpu().numpy()
@@ -139,6 +152,7 @@ def bootstrap(
     good &= np.linalg.norm(uv1p - uv1, axis=-1) < REPROJ_TH
     good &= np.linalg.norm(uv2p - uv2, axis=-1) < REPROJ_TH
     if good.sum() < 30:
+        _why(f"CheckRT survivors {int(good.sum())} < 30")
         return None, n_total
     # monocular gauge: median depth -> 1
     med = np.median(np.linalg.norm(X[good], axis=-1))

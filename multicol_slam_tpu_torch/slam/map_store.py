@@ -262,6 +262,11 @@ class MapStore:
         self.kf_point[k] = BAD_ID
         self.kf_feat_valid[k] = False
         self._free_kf.append(k)
+        # the re-homing above cached the children's covisibility with k still
+        # valid: cleared again, or a child would name the erased keyframe
+        # until the next insert (the reference keeps those entries, and its
+        # CorrectLoop then looks the erased keyframe up in its pose snapshot)
+        self._covis_cache.clear()
         for cb in self.on_kf_erased:
             cb(int(k))
         for p in pts:

@@ -133,9 +133,10 @@ class MultiColSLAM:
     rig must lie there. `init_sampler(frame_id, cam, n) -> [256, 8]`,
     `reloc_sampler(frame_id, n) -> [160, 6]` and `sim3_sampler(kf_frame_id,
     n) -> [300, 3]` give the RANSAC hypotheses of a bootstrap attempt, of a
-    relocalization and of a loop's Sim3 (default: drawn from a
-    torch.Generator seeded with `seed`; the async worker's loop closer has
-    a generator of its own, seeded with `seed` too). `match_fn` is the
+    relocalization and of a loop's Sim3 (default: drawn from a CPU
+    torch.Generator seeded with `seed`, so that the card draws what the CPU
+    draws; the async worker's loop closer has a generator of its own,
+    seeded with `seed` too). `match_fn` is the
     best-match kernel's wrapper, or its plain version to compare against."""
 
     def __init__(
@@ -171,7 +172,12 @@ class MultiColSLAM:
         self.init_sampler = init_sampler
         self.reloc_sampler = reloc_sampler
         self.sim3_sampler = sim3_sampler
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # the RANSAC hypotheses come from a CPU generator whatever the device:
+        # a CUDA generator of the same seed draws another stream (Philox, not
+        # the CPU's Mersenne Twister), and the card's runs would then part
+        # from the CPU's (as the reference's draws do not: threefry is the
+        # same on every device)
+        self.generator = torch.Generator().manual_seed(seed)
         self.seed = seed
         self.async_mapping = async_mapping
         self.map_lock = threading.Lock() if async_mapping else _NullLock()
@@ -235,8 +241,7 @@ class MultiColSLAM:
         if self.use_loop_closing:
             # the async worker draws from a generator of its own: one
             # generator a thread, so no draw depends on the threads' timing
-            gen = (torch.Generator(device=self.device).manual_seed(self.seed) if self.async_mapping
-                   else self.generator)
+            gen = torch.Generator().manual_seed(self.seed) if self.async_mapping else self.generator
             self.loop_closer = LoopCloser(store, self.rig, voc=voc, match_fn=self.match_fn,
                                           sim3_sampler=self.sim3_sampler, generator=gen, lock=self.map_lock,
                                           use_masks=self.use_masks)
@@ -754,14 +759,10 @@ class MultiColSLAM:
             out = track_stage(self.mc6, self.intr, self.rig.cams, feats, pose, lp2,
                               scale_factor=ex.scale_factor, n_levels=ex.n_levels, radius=8.0,
                               th_desc=self.th_track, use_masks=self.use_masks, match_fn=self.match_fn)
-            packed = out.packed.cpu().numpy()
-            ck = C * K
-            n_ok = int(packed[7])
+            pose_f, _, n_ok, assign, inl = out.fetch()
             if n_ok >= 10:
-                assign = packed[8:8 + ck].astype(np.int32)
-                inl = packed[8 + ck:8 + 2 * ck] > 0.5
                 self._last_reloc_frame = self.frame_id
-                self.last_pose = packed[:6].copy()
+                self.last_pose = pose_f.copy()
                 self.velocity = np.eye(4, dtype=np.float32)
                 ag = np.full(s.cfg.feats_per_kf, BAD_ID, np.int32)
                 matched = (assign >= 0) & inl

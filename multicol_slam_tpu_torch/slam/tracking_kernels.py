@@ -48,6 +48,13 @@ class TrackStageOut(NamedTuple):
     n_inliers: torch.Tensor  # scalar
     packed: torch.Tensor     # [8 + 2*C*K] f32: pose, n_matches, n_inliers, assign, inlier
 
+    def fetch(self):
+        """One-readback host view: (pose f32[6], n_matches, n_inliers,
+        assign i32[C*K], inlier bool[C*K])."""
+        p = self.packed.cpu().numpy()
+        ck = (len(p) - 8) // 2
+        return p[:6], int(p[6]), int(p[7]), p[8:8 + ck].astype(np.int32), p[8 + ck:8 + 2 * ck] > 0.5
+
 
 def project_rig(mc6, intr, pose6, X):
     """World points X [L, 3] -> uv [C, L, 2] and z [C, L] in every camera."""

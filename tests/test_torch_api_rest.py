@@ -1,34 +1,51 @@
 """The rest of the JAX package's public functions in the port, each against
 the JAX function on the same numpy inputs (the functions that the JAX
 package's own tests call: tests/test_camera.py, test_features.py,
-test_matching.py, test_native.py; and the map store's per-point queries).
+test_matching.py, test_native.py; the map store's per-point queries; and
+the reference's calling conventions: `FrameFeatures.n_cams` / `.k`,
+`TrackStageOut.fetch()`, `initializer.DEBUG_INIT`, `desc_bytes=` on the
+BRIEF functions with the pattern made from it, `ic_angles_from_patches`
+without its weights, `sample_indices(..., weights=)`).
 
 Tolerances: integer and boolean outputs, descriptors and the map store's
 arrays exactly; pixels 1e-3 px (float32 projections through polynomials of
 ~300 px; measured 6.1e-5); unit rays and camera-frame points 1e-5
 (measured 9.5e-7); centres 1e-5 / 1e-6 (measured 0); IC angles 1e-4 rad
-(float32 moment sums in another order; measured 1.3e-5).
+(float32 moment sums in another order; measured 1.3e-5); dBRIEF / mdBRIEF
+descriptor and mask bits >= 99 % equal to the JAX package's (ROADMAP Queue
+3, Slice 6: an offset near .5 may round the other way), and exactly equal
+to the port's call with the extractor's explicit pattern.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import jax
+
 from multicol_slam_tpu import native as jnative
+from multicol_slam_tpu.io.synthetic import make_world
 from multicol_slam_tpu.models import camera as jcam
 from multicol_slam_tpu.models import rig as jrig
 from multicol_slam_tpu.ops import brief as jbrief
 from multicol_slam_tpu.ops import image as jimage
 from multicol_slam_tpu.ops import matching as jmatch
+from multicol_slam_tpu.ops import ransac as jransac
+from multicol_slam_tpu.slam import initializer as jinit
 from multicol_slam_tpu.slam import map_store as jms
+from multicol_slam_tpu.slam import tracking_kernels as jtk
 from multicol_slam_tpu.utils.geometry import cayley_to_hom as jcayley_to_hom
-from multicol_slam_tpu_torch import native
+from multicol_slam_tpu_torch import convert, native
 from multicol_slam_tpu_torch.models import camera as tcam
 from multicol_slam_tpu_torch.models import rig as trig
 from multicol_slam_tpu_torch.ops import brief as tbrief
 from multicol_slam_tpu_torch.ops import image as timage
 from multicol_slam_tpu_torch.ops import matching as tmatch
+from multicol_slam_tpu_torch.ops import ransac as transac
+from multicol_slam_tpu_torch.slam import initializer as tinit
 from multicol_slam_tpu_torch.slam import map_store as tms
+from multicol_slam_tpu_torch.slam import tracking_kernels as ttk
+from multicol_slam_tpu_torch.slam.features import FIELDS
 from multicol_slam_tpu_torch.utils.geometry import cayley_to_hom
 from tests.test_torch_map_store import CFG, _features
 
@@ -267,3 +284,137 @@ def test_native_count_observations():
         np.testing.assert_array_equal(got, native.count_observations_plain(kf_point, kf_valid, ids))
         np.testing.assert_array_equal(got, jnative.count_observations(kf_point, kf_valid, ids))
         assert got.dtype == np.int32
+
+
+# --- the reference's calling conventions ------------------------------------
+
+@pytest.fixture(scope="module")
+def line_world():
+    """tests/test_torch_initializer.py's line world."""
+    return make_world(n_points=500, n_frames=8, n_cams=2, n_feats=250, noise_px=0.2, trajectory="line", seed=1)
+
+
+def _port_features(jf):
+    return convert.frame_features_from_numpy(**{k: np.asarray(getattr(jf, k)) for k in FIELDS}, device="cpu")
+
+
+def test_frame_features_n_cams_and_k(line_world):
+    jf = line_world.frame_features(0)
+    tf = _port_features(jf)
+    assert (tf.n_cams, tf.k) == (jf.n_cams, jf.k) == (2, 250)
+    assert isinstance(tf.n_cams, int) and isinstance(tf.k, int)
+
+
+def test_track_stage_out_fetch():
+    """The same packed stage result: the same host tuple, types included."""
+    rng = np.random.default_rng(5)
+    ck = 2 * 7
+    packed = np.concatenate([rng.normal(size=6), [9.0, 6.0], rng.integers(-1, 30, ck),
+                             rng.random(ck) > 0.5]).astype(np.float32)
+    z = np.zeros(1, np.float32)
+    want = jtk.TrackStageOut(*(jnp.asarray(z),) * 5, packed=jnp.asarray(packed)).fetch()
+    got = ttk.TrackStageOut(*(torch.tensor(z),) * 5, packed=torch.tensor(packed)).fetch()
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        assert type(g) is type(w)
+        if isinstance(w, np.ndarray):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            np.testing.assert_array_equal(g, w)
+        else:
+            assert g == w
+    assert got[1:3] == (9, 6) and got[3].dtype == np.int32 and got[4].dtype == bool
+
+
+@pytest.mark.parametrize("case", ["same_frame", "few_matches"])
+def test_debug_init_prints_the_same_rejection(line_world, monkeypatch, capsys, case):
+    """DEBUG_INIT on: both packages print the same gate's rejection (a
+    frame against itself fits no essential matrix: zero baseline; a frame
+    with most features dropped has too few matches). Off (the default):
+    nothing is printed."""
+    j1 = line_world.frame_features(0)
+    j2 = j1
+    if case == "few_matches":
+        valid = np.asarray(j1.valid).copy()
+        valid[:, 40:] = False
+        j2 = type(j1)(**{k: (valid if k == "valid" else np.asarray(getattr(j1, k))) for k in FIELDS})
+    trig_ = convert.rig_from_numpy(*(np.asarray(getattr(line_world.rig.cams, k))
+                                     for k in ("pol", "invpol", "cde", "pp", "wh")),
+                                   np.asarray(line_world.rig.Mc_cayley), device="cpu")
+    sampler = lambda c, n: torch.tensor(np.asarray(  # noqa: E731
+        jransac.sample_indices(jax.random.fold_in(jax.random.PRNGKey(0), c), 256, 8, n)))
+    assert not tinit.DEBUG_INIT and not jinit.DEBUG_INIT
+    assert tinit.bootstrap(trig_, _port_features(j1), _port_features(j2), sampler=sampler)[0] is None
+    assert capsys.readouterr().out == ""
+    monkeypatch.setattr(jinit, "DEBUG_INIT", True)
+    monkeypatch.setattr(tinit, "DEBUG_INIT", True)
+    rj, nj = jinit.bootstrap(line_world.rig, j1, j2, key=jax.random.PRNGKey(0))
+    want = capsys.readouterr().out
+    rt, nt = tinit.bootstrap(trig_, _port_features(j1), _port_features(j2), sampler=sampler)
+    got = capsys.readouterr().out
+    assert rj is None and rt is None and nt == nj
+    assert got == want and got.startswith("[bootstrap] reject: ")
+    assert ("matches" if case == "few_matches" else "essential inliers") in got
+
+
+def test_brief_desc_bytes_and_default_tables(cams):
+    """compute_orb_from_patches, compute_dbrief and
+    compute_dbrief_from_patches called the reference's way (desc_bytes=,
+    no pattern), and ic_angles_from_patches without wx, wy."""
+    jc, tc = cams
+    rng = np.random.default_rng(6)
+    img = np.asarray(jimage.box_filter(jnp.asarray(rng.uniform(0, 255, (1, 480, 754)).astype(np.float32)), 5)[0])
+    centers = np.stack([rng.integers(20, 734, 40), rng.integers(20, 460, 40)], -1).astype(np.int32)
+    jp, jr0, jc0 = jbrief.gather_sample_patches(jnp.asarray(img), jnp.asarray(centers))
+    tp, tr0, tc0 = tbrief.gather_sample_patches(torch.tensor(img), torch.tensor(centers))
+    ang = np.asarray(jbrief.ic_angles_from_patches(jp, jnp.asarray(centers), jr0, jc0))
+    _near(tbrief.ic_angles_from_patches(tp, torch.tensor(centers), tr0, tc0).numpy(), ang, 1e-4)
+    ang_t = torch.tensor(ang)
+    for desc_bytes in (16, 32):
+        want = np.asarray(jbrief.compute_orb_from_patches(jp, jnp.asarray(centers), jr0, jc0, jnp.asarray(ang),
+                                                          desc_bytes=desc_bytes))
+        got = tbrief.compute_orb_from_patches(tp, torch.tensor(centers), tr0, tc0, ang_t, desc_bytes=desc_bytes)
+        assert got.shape == (40, desc_bytes)
+        np.testing.assert_array_equal(got.numpy(), want)
+    c = 1
+    und = np.asarray(jbrief.undistort_keypoints(jc.pol[c], jc.cde[c], jc.pp[c], jc.pol[c, 0],
+                                                jnp.asarray(centers.astype(np.float32))))
+    jargs = (jnp.asarray(und), jnp.asarray(ang), jc.invpol[c], jc.cde[c], jc.pp[c], jc.pol[c, 0])
+    targs = (torch.tensor(und), ang_t, tc.invpol[c], tc.cde[c], tc.pp[c], tc.pol[c, 0])
+    for desc_bytes in (16, 32):
+        pattern = torch.tensor(tbrief.brief_pattern(16 * desc_bytes))
+        want = jbrief.compute_dbrief(jnp.asarray(img), jnp.asarray(centers), *jargs, desc_bytes=desc_bytes,
+                                     learn_masks=True)
+        want_p = jbrief.compute_dbrief_from_patches(jp, jnp.asarray(centers), jr0, jc0, *jargs, desc_bytes, True)
+        got = tbrief.compute_dbrief(torch.tensor(img), torch.tensor(centers), *targs, desc_bytes=desc_bytes,
+                                    learn_masks=True)
+        got_p = tbrief.compute_dbrief_from_patches(tp, torch.tensor(centers), tr0, tc0, *targs, desc_bytes, True)
+        explicit = tbrief.compute_dbrief_from_patches(tp, torch.tensor(centers), tr0, tc0, *targs, desc_bytes, True,
+                                                      pattern=pattern)
+        for g, w in ((got, want), (got_p, want_p)):
+            for a, b, e in zip(g, w, explicit):
+                assert a.shape == (40, desc_bytes) and a.dtype == torch.uint8
+                np.testing.assert_array_equal(a.numpy(), e.numpy())
+                agree = np.mean(np.unpackbits(a.numpy()) == np.unpackbits(np.asarray(b)))
+                assert agree >= 0.99, agree
+
+
+def test_sample_indices_weights():
+    """weights=: m distinct indices a row, never one of weight 0, as the
+    reference's choice without replacement draws them; sample_weighted is
+    the same draw."""
+    w = np.ones(30, np.float32)
+    w[[0, 3, 7, 8, 20]] = 0.0
+    w[10:15] = 4.0
+    want = np.asarray(jransac.sample_indices(jax.random.PRNGKey(2), 200, 6, 30, weights=jnp.asarray(w / w.sum())))
+    got = transac.sample_indices(200, 6, 30, torch.Generator().manual_seed(2), weights=torch.tensor(w)).numpy()
+    for idx in (got, want):
+        assert idx.shape == (200, 6)
+        assert all(len(set(row)) == 6 for row in idx.tolist())
+        assert (w[idx] > 0).all()
+    # the heavy rows are drawn more often in both
+    for idx in (got, want):
+        assert np.isin(idx, np.arange(10, 15)).mean() > 0.25
+    valid = torch.tensor(w > 0)
+    np.testing.assert_array_equal(transac.sample_weighted(200, 6, valid, torch.Generator().manual_seed(3)).numpy(),
+                                  transac.sample_indices(200, 6, 30, torch.Generator().manual_seed(3),
+                                                         weights=valid).numpy())

@@ -155,11 +155,12 @@ def test_compute_dbrief_exact_on_shared_offsets(rigs, images, keypoints, monkeyp
     img = images.astype(np.float32)
     got = tbrief.compute_dbrief(torch.tensor(img), torch.tensor(uv), torch.tensor(und), torch.tensor(ang),
                                 trig.cams.invpol, trig.cams.cde, trig.cams.pp, trig.cams.pol[:, 0],
-                                torch.tensor(pat), learn_masks)
+                                learn_masks=learn_masks, pattern=torch.tensor(pat))
     patches, r0, c0 = tbrief.gather_sample_patches(torch.tensor(img), torch.tensor(uv))
     got_p = tbrief.compute_dbrief_from_patches(patches, torch.tensor(uv), r0, c0, torch.tensor(und),
                                                torch.tensor(ang), trig.cams.invpol, trig.cams.cde, trig.cams.pp,
-                                               trig.cams.pol[:, 0], torch.tensor(pat), learn_masks)
+                                               trig.cams.pol[:, 0], learn_masks=learn_masks,
+                                               pattern=torch.tensor(pat))
     for c in range(C):
         args = (jnp.asarray(uv[c]), jnp.asarray(und[c]), jnp.asarray(ang[c]), jrig.cams.invpol[c],
                 jrig.cams.cde[c], jrig.cams.pp[c], jrig.cams.pol[c, 0])

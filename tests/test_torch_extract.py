@@ -129,7 +129,7 @@ def test_orb_and_ic_angles_on_identical_keypoints(images):
     # same angles in -> bit-identical descriptors out
     desc_j = jbrief.compute_orb_from_patches(patches, jnp.asarray(centers), r0, c0, jnp.asarray(ang_j), 32)
     desc_t = tbrief.compute_orb_from_patches(tp, torch.tensor(centers), tr0, tc0, torch.tensor(ang_j),
-                                             torch.tensor(tbrief.brief_pattern(512)))
+                                             pattern=torch.tensor(tbrief.brief_pattern(512)))
     np.testing.assert_array_equal(desc_t.numpy(), np.asarray(desc_j))
 
 

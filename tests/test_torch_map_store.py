@@ -179,3 +179,28 @@ def test_map_store_from_numpy_round_trip(stores):
     _assert_same(js, ts)
     with pytest.raises(ValueError):
         convert.map_store_from_numpy(dataclasses.asdict(js.cfg), {"scale_factors": np.ones(3)}, 0, 0, [], [])
+
+
+def test_erased_keyframe_leaves_the_covisibility_cache():
+    """Erasing a keyframe with spanning-tree children re-homes them by their
+    covisibility, computed while the keyframe is still valid; afterwards no
+    keyframe may name the erased one as covisible. (The JAX package keeps
+    the children's entries until the next insert, and its CorrectLoop then
+    fails on the erased keyframe's missing pose snapshot.)"""
+    ts = tms.MapStore(tms.MapConfig(**CFG))
+    rng = np.random.default_rng(4)
+    for k in range(3):
+        ts.add_keyframe(np.zeros(6, np.float32), _features(rng)[1], 0.04 * k, k)
+    # points seen by all three keyframes: 1 and 2 covisible with 0 and each other
+    for f in range(6):
+        p = ts.add_point(rng.normal(0, 3, 3).astype(np.float32), ts.kf_desc[0, f], ts.kf_dmask[0, f], 0,
+                         np.zeros(3, np.float32), 0.1, 25.0)
+        for k in range(3):
+            ts.add_observation(k, f, p)
+    ts.assign_parent(1)
+    ts.kf_parent[2] = 1                 # 2 is a child of 1
+    assert ts.kf_parent[1] == 0 and 1 in ts.covisibility(2)
+    ts.erase_keyframe(1)
+    assert not ts.kf_valid[1] and ts.kf_parent[2] == 0
+    assert 1 not in ts.covisibility(2) and 1 not in ts.covisibility(0)
+    assert set(ts.covisibility(2)) == {0}

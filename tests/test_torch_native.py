@@ -37,6 +37,19 @@ def test_covisibility_counts(seed):
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
+def test_covisibility_counts_hash_probe(seed):
+    """tests/test_native.py's call, three arguments: the hash-probe scan
+    (no point-id capacity) == its numpy version == the JAX package's."""
+    kf_point, _, kf_valid = random_table(seed)
+    kf_point[0, :3] = [P + 5, 2 * P, P + 5]   # ids past any capacity still count
+    kf_point[1, :2] = [P + 5, 2 * P]
+    for k in range(kf_point.shape[0]):
+        got = native.covisibility_counts(kf_point, kf_valid, k)
+        np.testing.assert_array_equal(got, native.covisibility_counts_plain(kf_point, kf_valid, k))
+        np.testing.assert_array_equal(got, jnative.covisibility_counts(kf_point, kf_valid, k))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
 def test_vote_counts(seed):
     kf_point, _, kf_valid = random_table(seed)
     seeds = np.random.default_rng(seed + 10).choice(P, 12, replace=False)

@@ -109,6 +109,31 @@ def test_sample_indices_generator():
     assert int(transac.sample_indices(4, 8, 0, g).max()) == 0
 
 
+@pytest.mark.parametrize("async_mapping", [False, True])
+def test_system_draws_on_a_cpu_generator_whatever_its_device(async_mapping):
+    """The system's RANSAC hypotheses (bootstrap, relocalization, the loop's
+    Sim3, the async worker's) come from CPU generators seeded with its seed,
+    on any device: a CUDA generator of the same seed draws another stream,
+    and the card's eval --mdbrief seed 8 parted from the CPU's there (11 vs
+    22 of 25 frames tracked). A system on the meta device stands in for the
+    card here (a generator cannot be made on it)."""
+    from multicol_slam_tpu_torch.io.synthetic import make_synthetic_rig
+    from multicol_slam_tpu_torch.slam.map_store import MapConfig
+    from multicol_slam_tpu_torch.slam.system import MultiColSLAM
+    from multicol_slam_tpu_torch.utils.config import ExtractorSettings, SlamSettings
+
+    slam = MultiColSLAM(make_synthetic_rig(2, device="meta"),
+                        SlamSettings(extractor=ExtractorSettings(n_features=50, n_levels=1)),
+                        MapConfig(max_keyframes=4, max_points=16, n_cams=2, feats_per_cam=50, n_levels=1),
+                        device="meta", seed=3, async_mapping=async_mapping)
+    try:
+        for g in (slam.generator, slam.loop_closer.generator):
+            assert g.device.type == "cpu" and g.initial_seed() == 3
+        assert (slam.loop_closer.generator is slam.generator) != async_mapping
+    finally:
+        slam.shutdown()
+
+
 def test_eight_point_and_candidates_match_up_to_sign():
     """On exact correspondences E is unique up to sign, and the four (R, t)
     candidates are the same set."""

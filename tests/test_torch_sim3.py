@@ -204,24 +204,78 @@ def test_edge_jacobians_match_jacfwd():
 
 
 @pytest.mark.parametrize("K,step,drift,dense_limit,gt_tol", [(10, 1.0, 0.05, 300, 1e-2), (24, 0.5, 0.03, 300, 5e-3),
-                                                             (24, 0.5, 0.03, 0, 5e-3), (320, 0.05, 0.002, 300, None)],
-                         ids=["dense-K10", "dense-K24", "pcg-K24", "pcg-K320"])
+                                                             (24, 0.5, 0.03, 0, 5e-3), (320, 0.05, 0.002, 300, None),
+                                                             (320, 0.05, 0.002, None, None)],
+                         ids=["dense-K10", "dense-K24", "pcg-K24", "pcg-K320", "pcg-K320-default-limit"])
 def test_optimize_essential_graph(K, step, drift, dense_limit, gt_tol):
     """Dense on :202's chain and :267's; PCG on :267's (dense_limit=0, as
     that test forces it) and on a chain of 320 keyframes, past the dense
-    limit, where the branch is taken by size. Near the ground truth as
+    limit, where the branch is taken by size (also with dense_limit left at
+    each package's default, None here). Near the ground truth as
     test_optimizer.py asks."""
     v_gt, v_est, ei, ej, meas, fixed = _chain(K, step, drift)
     n_iters = 30 if K < 300 else 8
+    limit = {} if dense_limit is None else dict(dense_limit=dense_limit)
     je = jba.Sim3Edges(jnp.asarray(ei), jnp.asarray(ej), jnp.asarray(meas), jnp.ones(K), jnp.ones(K, bool))
     ref = np.asarray(jba.optimize_essential_graph(jnp.asarray(v_est), je, jnp.asarray(fixed), n_iters=n_iters,
-                                                  dense_limit=dense_limit))
+                                                  **limit))
     te = tba.Sim3Edges(torch.tensor(ei).long(), torch.tensor(ej).long(), torch.tensor(meas), torch.ones(K),
                        torch.ones(K, dtype=torch.bool))
     got = _np(tba.optimize_essential_graph(torch.tensor(v_est), te, torch.tensor(fixed), n_iters=n_iters,
-                                           dense_limit=dense_limit))
+                                           **limit))
     np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-5)
     err = np.abs(got - v_gt).max()
     # 8 steps of 60 PCG iterations only start to undo the drift of 320
     # keyframes, in both packages
     assert err < gt_tol if gt_tol else err < 0.9 * np.abs(v_est - v_gt).max()
+
+
+def test_loop_closer_eg_solve_takes_pcg_past_300():
+    """LoopCloser._eg_solve (the system's dense-or-PCG choice on the padded
+    K) on chip_smoke.py's problem of 320 keyframes, the chain above built
+    in the port's geometry: both packages pad it to 512 and run PCG, and
+    their poses agree within the essential graph's tolerance."""
+    import chip_smoke as cs
+    from multicol_slam_tpu.io.synthetic import make_synthetic_rig as jmake_rig
+    from multicol_slam_tpu.slam import loop_closing as jlc
+    from multicol_slam_tpu.slam import map_store as jms
+    from multicol_slam_tpu_torch.io.synthetic import make_synthetic_rig
+    from multicol_slam_tpu_torch.slam import loop_closing as tlc
+    from multicol_slam_tpu_torch.slam import map_store as tms
+
+    chain = cs.eg_chain(cs.EG_K)
+    want = _chain(cs.EG_K, cs.EG_STEP, cs.EG_DRIFT)
+    for a, b in zip(chain, want):
+        np.testing.assert_allclose(np.asarray(a, np.float64), np.asarray(b, np.float64), rtol=0, atol=1e-6)
+    prob = cs.eg_problem(chain)
+    cfg = dict(max_keyframes=1, max_points=1, n_cams=3, feats_per_cam=1)
+    ref = jlc.LoopCloser(jms.MapStore(jms.MapConfig(**cfg)), jmake_rig(3))._eg_solve(prob)["new_pose6"]
+    branch = []
+    orig = tlc.optimize_essential_graph
+
+    def recorded(v, edges, fixed, **kw):
+        branch.append((int(v.shape[0]), kw["dense_limit"]))
+        return orig(v, edges, fixed, **kw)
+    lc = tlc.LoopCloser(tms.MapStore(tms.MapConfig(**cfg)), make_synthetic_rig(3, device="cpu"))
+    tlc.optimize_essential_graph = recorded
+    try:
+        got = lc._eg_solve(prob)["new_pose6"]
+    finally:
+        tlc.optimize_essential_graph = orig
+    assert branch == [(cs.EG_K, 0)]
+    np.testing.assert_allclose(got, ref, rtol=cs.EG_TOL, atol=cs.EG_TOL)
+    # the loop edge pulls the chain's far end back toward its start
+    assert np.abs(got - prob_pose6(prob)).max() > 1e-3
+
+
+def prob_pose6(prob):
+    """The problem's starting poses as the solve writes them (body -> world
+    Cayley)."""
+    from multicol_slam_tpu_torch.slam.map_store import hom_to_cayley_np
+
+    out = []
+    for R, t, s in zip(prob["vR"].astype(np.float64), prob["vt"].astype(np.float64), prob["vs"].astype(np.float64)):
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = R, t / s
+        out.append(hom_to_cayley_np(np.linalg.inv(T)))
+    return np.asarray(out, np.float32)
