@@ -27,7 +27,11 @@ traceback and goes on, as the reference does).
                      keypoints and the map as PNGs in DIR (io/viz.py; .npz
                      dumps where matplotlib is not installed)
   --profile DIR      a torch.profiler trace of the tracking loop (CPU, and
-                     CUDA on the card) as DIR/trace.json
+                     CUDA on the card) as DIR/trace.json; the program's
+                     tracer is on meanwhile, so the trace shows its
+                     mcs.* ranges (utils/tracing.py) beside the kernels,
+                     and its spans and counters of every thread (the
+                     worker's too) go to DIR/spans.json
 
 The command line runs on the card; `main([...], device="cpu")` runs the
 same on the CPU.
@@ -35,6 +39,7 @@ same on the CPU.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import sys
 import time
@@ -49,6 +54,7 @@ from multicol_slam_tpu_torch.io.checkpoint import load_map
 from multicol_slam_tpu_torch.io.viz import Visualizer
 from multicol_slam_tpu_torch.models.vocab import KeyFrameDatabase, load_dbow2_yaml
 from multicol_slam_tpu_torch.slam.system import MultiColSLAM
+from multicol_slam_tpu_torch.utils import tracing
 from multicol_slam_tpu_torch.utils.config import load_rig, load_slam_settings
 
 GRAY = np.asarray([0.299, 0.587, 0.114])   # Camera.RGB's conversion
@@ -191,6 +197,7 @@ def main(argv=None, device=DEFAULT_DEVICE) -> int:
             if slam.device.type == "cuda":
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             profiling = torch.profiler.profile(activities=activities)
+            tracing.enable()
         times = []
         with profiling as prof:
             # one-frame prefetch: the next frame's load and extraction are
@@ -210,12 +217,19 @@ def main(argv=None, device=DEFAULT_DEVICE) -> int:
                     viz.update(slam, images_cur, m)
                 if i % 50 == 0:
                     print(f"frame {i}: state={m.state} inliers={m.n_inliers} {times[-1] * 1e3:.1f} ms")
+        slam.wait_mapping_idle()
         if profile_dir is not None:
             os.makedirs(profile_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+            if slam.device.type == "cuda":
+                torch.cuda.synchronize(slam.device)
+            with open(os.path.join(profile_dir, "spans.json"), "w") as f:
+                json.dump([r.as_dict() for r in tracing.records()], f)
             print(f"profiler trace written to {profile_dir}")
-        slam.wait_mapping_idle()
     finally:
+        if profile_dir is not None:
+            tracing.disable()
+            tracing.clear()
         slam.shutdown()
     times_arr = np.asarray(times) * 1e3
     print(f"p95 tracking time:    {np.percentile(times_arr, 95):.2f} ms | worst: {times_arr.max():.2f} ms")

@@ -51,6 +51,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from multicol_slam_tpu_torch.ops.matching import hamming_matrix, hamming_matrix_masked
+from multicol_slam_tpu_torch.utils import tracing
 
 BIG = 1e9
 QUERY_TILE = 64    # queries of a block: 4 warps x the 16 rows of an mma tile
@@ -297,7 +298,23 @@ def masked_best_match_cams(
     level_tol: float = 1.0,
 ) -> Outputs:
     """(best, second, idx, col_best) of the masked Hamming matrix per camera;
-    see the module docstring."""
+    see the module docstring. With the tracer on, the call is a `k1` span
+    that counts the launch's shape (C, Q, T, B, shared, masked) and P, the
+    pairs that pass the window and the level band. P is computed when the
+    counters are read, from the launch's inputs (kept until then, and not
+    modified by the callers), so the traced program launches no kernel the
+    untraced one does not."""
+    with tracing.span("k1") as sp:
+        out = _best_match_cams(desc_q, uv_q, oct_q, desc_t, uv_t, rad_t, lvl_t, rad_q, mask_q, mask_t, level_tol)
+    if sp is not None:
+        C, Q, B = desc_q.shape
+        sp.count(C=C, Q=Q, T=desc_t.shape[-2], B=B, shared=int(desc_t.dim() == 2),
+                 masked=int(mask_q is not None and mask_t is not None),
+                 P=lambda: window_mask(uv_q, oct_q, uv_t, rad_t, lvl_t, rad_q, level_tol).sum())
+    return out
+
+
+def _best_match_cams(desc_q, uv_q, oct_q, desc_t, uv_t, rad_t, lvl_t, rad_q, mask_q, mask_t, level_tol) -> Outputs:
     if desc_q.device.type == "cpu":
         return masked_best_match_cams_plain(desc_q, uv_q, oct_q, desc_t, uv_t, rad_t, lvl_t,
                                             rad_q, mask_q, mask_t, level_tol)

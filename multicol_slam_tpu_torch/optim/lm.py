@@ -42,6 +42,7 @@ from multicol_slam_tpu_torch.optim.problem import (
     BAParams, FreeMask, Observations, huber_weights, pose_residuals_and_jac,
     residuals_and_jacobians, residuals_only, robust_cost,
 )
+from multicol_slam_tpu_torch.utils import tracing
 
 
 class LMConfig(NamedTuple):
@@ -103,7 +104,8 @@ def _segsum(rows: torch.Tensor, seg) -> torch.Tensor:
     """sum_o rows[o] -> out[ids[o]]: [O, D] -> [n_seg, D], each segment
     added in row order."""
     order, lengths = seg
-    return torch.segment_reduce(rows[order], "sum", lengths=lengths, axis=0, unsafe=True)
+    with tracing.span("lm.segsum"):
+        return torch.segment_reduce(rows[order], "sum", lengths=lengths, axis=0, unsafe=True)
 
 
 def _carries_mask(m) -> bool:
@@ -332,20 +334,30 @@ def lm_solve_interruptible(
     takes alone leaves the others waiting in a collective."""
     if reducer is not None and (interrupt is not None or pre_step is not None):
         raise ValueError("a distributed solve takes no interrupt or pre_step: every rank must take the same branch")
-    seg = make_segments(params, obs)
-    state = _lm_init(params, obs, config, reducer)
-    it = 0
-    while it < config.max_iters:
-        if pre_step is not None:
-            pre_step()
-        for _ in range(min(max(chunk_iters, 1), config.max_iters - it)):
-            state = _lm_step_body(state, obs, seg, free, config, reducer)
-            it += 1
-        if bool(state.done):
-            break
-        if interrupt is not None and interrupt():
-            break
-    return state.params, state.cost
+    with tracing.span("lm.solve", "solve") as sp:
+        seg = make_segments(params, obs)
+        state = _lm_init(params, obs, config, reducer)
+        it = 0
+        while it < config.max_iters:
+            if pre_step is not None:
+                pre_step()
+            for _ in range(min(max(chunk_iters, 1), config.max_iters - it)):
+                with tracing.span("lm.iter"):
+                    state = _lm_step_body(state, obs, seg, free, config, reducer)
+                it += 1
+            with tracing.span("lm.done_read"):
+                done = bool(state.done)
+            if done:
+                break
+            if interrupt is not None and interrupt():
+                break
+        if sp is not None:
+            # the problem's shapes and the iterations run: what the segment
+            # sums had to move (each iteration: gradient and blocks, then a
+            # Hessian-vector product per PCG step)
+            sp.count(rows=obs.kf.shape[0], poses=params.poses.shape[0], points=params.points.shape[0],
+                     iters=it, cg_steps=it * config.cg_iters)
+        return state.params, state.cost
 
 
 def lm_solve(params: BAParams, obs: Observations, free: FreeMask,

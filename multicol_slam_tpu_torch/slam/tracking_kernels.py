@@ -25,6 +25,7 @@ from multicol_slam_tpu_torch.ops.matching import rotation_consistency
 from multicol_slam_tpu_torch.optim.ba import pose_optimization
 from multicol_slam_tpu_torch.optim.problem import BAParams, Observations, intr_project
 from multicol_slam_tpu_torch.slam.features import FrameFeatures
+from multicol_slam_tpu_torch.utils import tracing
 from multicol_slam_tpu_torch.utils.geometry import cayley_to_hom, hom_inverse, transform_points
 
 
@@ -147,10 +148,11 @@ def track_stage(
     """One matching + pose-optimization stage."""
     C, K, B = feats.desc.shape
     dev = pose0.device
-    assign, _, keep = project_and_match(
-        mc6, intr, cams, feats, pose0, pts, scale_factor, n_levels, radius, th_desc,
-        level_tol, use_masks, match_fn,
-    )
+    with tracing.span("track.match"):
+        assign, _, keep = project_and_match(
+            mc6, intr, cams, feats, pose0, pts, scale_factor, n_levels, radius, th_desc,
+            level_tol, use_masks, match_fn,
+        )
     n_matches = keep.sum()
     obs = Observations(
         kf=torch.zeros(C * K, dtype=torch.int64, device=dev),
@@ -160,7 +162,8 @@ def track_stage(
         inv_sigma2=(1.0 / torch.pow(scale_factor, 2.0 * feats.octave.to(torch.float32))).reshape(C * K),
         valid=keep,
     )
-    poses_out, inl, n_inl = pose_optimization(BAParams(pose0[None], pts.X, mc6, intr), obs)
+    with tracing.span("track.pose"):
+        poses_out, inl, n_inl = pose_optimization(BAParams(pose0[None], pts.X, mc6, intr), obs)
     packed = torch.cat([
         poses_out[0],
         torch.stack([n_matches, n_inl]).to(torch.float32),
@@ -188,12 +191,13 @@ def track_frame_fused(
     1's pose when it found enough inliers (else from the prediction).
     Returns packed f32 [7 + 8 + 2*C*K]: stage-1 pose (6) and n_inliers (1),
     then stage 2's `TrackStageOut.packed`."""
-    o1 = track_stage(mc6, intr, cams, feats, pose_pred, pts1, scale_factor, n_levels,
-                     radius1, th_desc, level_tol, use_masks, match_fn)
-    pose1 = torch.where(o1.n_inliers >= min_pose_inliers, o1.pose, pose_pred)
-    o2 = track_stage(mc6, intr, cams, feats, pose1, pts2, scale_factor, n_levels,
-                     radius2, th_desc, level_tol, use_masks, match_fn)
-    return torch.cat([o1.pose, o1.n_inliers[None].to(torch.float32), o2.packed])
+    with tracing.span("track.fused"):
+        o1 = track_stage(mc6, intr, cams, feats, pose_pred, pts1, scale_factor, n_levels,
+                         radius1, th_desc, level_tol, use_masks, match_fn)
+        pose1 = torch.where(o1.n_inliers >= min_pose_inliers, o1.pose, pose_pred)
+        o2 = track_stage(mc6, intr, cams, feats, pose1, pts2, scale_factor, n_levels,
+                         radius2, th_desc, level_tol, use_masks, match_fn)
+        return torch.cat([o1.pose, o1.n_inliers[None].to(torch.float32), o2.packed])
 
 
 def unpack_fused(packed_np: np.ndarray):

@@ -16,7 +16,7 @@ draws the viewer's files every 10 frames: the saved file holds the live
 store at exit; --load-map --localization over frames 12-24 leaves the
 loaded map exactly as it was (no keyframe inserted); --load-map async
 resumes on the worker with the new mapper wired to it; --profile writes a
-trace of 5 frames; eval --selfcal at 40 frames reaches the reference's 10x
+trace of 5 frames and the tracer's spans; eval --selfcal at 40 frames reaches the reference's 10x
 (tests/test_eval_accuracy.py:100-110).
 """
 import inspect
@@ -34,6 +34,7 @@ from multicol_slam_tpu_torch.io import checkpoint, viz
 from multicol_slam_tpu_torch.io.render import write_dataset
 from multicol_slam_tpu_torch.io.synthetic import make_world
 from multicol_slam_tpu_torch.io.trajectory import ate_rmse, load_tum_trajectory
+from multicol_slam_tpu_torch.utils import tracing
 
 N_FRAMES = 25
 
@@ -191,7 +192,9 @@ def test_load_map_async(dataset, mapped, tmp_path, monkeypatch, capsys):
 
 
 def test_profile(dataset, tmp_path, monkeypatch, capsys):
-    """--profile DIR over 5 frames: a Chrome trace of the tracking loop."""
+    """--profile DIR over 5 frames: a Chrome trace of the tracking loop,
+    with the program's mcs.* ranges, and the tracer's records as
+    spans.json; the tracer is off again after the run."""
     _, d = dataset
     settings = tmp_path / "s.yaml"
     settings.write_text(open(os.path.join(d, "Slam_Settings_synthetic.yaml")).read())
@@ -203,6 +206,13 @@ def test_profile(dataset, tmp_path, monkeypatch, capsys):
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert len(trace["traceEvents"]) > 100 and any(n.startswith("aten::") for n in names)
+    assert {"mcs.system.track_begin", "mcs.track.fused", "mcs.track.pose", "mcs.k1"} <= names
+    spans = json.loads((tmp_path / "prof" / "spans.json").read_text())
+    begins = [r for r in spans if r["name"] == "system.track_begin"]
+    assert len(begins) == 5 and {r["request"][0] for r in begins} == {"frame"}
+    k1 = [r for r in spans if r["name"] == "k1"]
+    assert k1 and all(r["counts"]["P"] >= 0 and r["counts"]["C"] == 3 for r in k1)
+    assert not tracing.TRACER.enabled and tracing.records() == []
 
 
 def test_mdbrief_masks_raise(dataset, tmp_path, monkeypatch):
