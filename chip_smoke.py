@@ -9,9 +9,10 @@ on one CUDA card.
     python3 chip_smoke.py [--reloc-dump NPZ]
 
 Phases, each reported on its own lines:
-  1. device: the card's name and power limit; TF32 off; the best-match
-     library built from `multicol_slam_tpu_torch/csrc/best_match.cu`, with
-     ptxas's registers, shared memory and spills of every instance.
+  1. device: the card's name and power limit; TF32 off; the kernel
+     library built from `multicol_slam_tpu_torch/csrc/*.cu` (K1, K2 and the
+     pose kernel), with ptxas's registers, shared memory and spills of every
+     instance.
   2. kernel: K1 (`masked_best_match_cams`) against its plain PyTorch
      version on the card, at the tracking shape (3 cameras, 400 queries,
      4096 targets, 32-byte descriptors), plain and masked, shared and
@@ -22,8 +23,12 @@ Phases, each reported on its own lines:
   3. slice: one frame of the tracking step at full Lafida width (3 cameras
      of 754x480, 400 features, 8 levels, local map of 4096 points):
      extract_features -> track_frame_fused. Checks the inlier count, that
-     K1 ran twice, and that the plain matcher gives the same answer; then
-     captures the arguments of the frame's two K1 launches.
+     K1 ran twice, that the pose kernel ran twice (`POSE_KERNEL.launches`
+     set to 0 before the frame) and that each of its two launches matches
+     the plain `pose_optimization_plain` on the same card tensors (pose
+     and inlier flags, tests/torch_pose_problems.py's tolerances), and
+     that the plain matcher gives the same answer; then captures the
+     arguments of the frame's two K1 launches.
   4. timing: extraction and tracking ms (CUDA events over 3 warm-up
      frames); the bench's phase 1 (multicol_slam_tpu_torch/bench.py: its
      own slice on float32 images, frames/s over 30 back-to-back frames, the
@@ -31,7 +36,9 @@ Phases, each reported on its own lines:
      frame; K1 against its plain version at the tracking shape on random
      inputs: device time (CUDA graph replays), the eager call, the bound
      and the library piece (the +-1 bf16 torch.matmul of the descriptors:
-     the distance alone).
+     the distance alone). The pose kernel at phase 3's two launches:
+     device time (the profiler's), the eager call, the plain version,
+     its chain bound and HBM bound (the `pose_gn_kernel` kernels entry).
   5. k2: K2 (`masked_best_match`, one camera) against its plain version,
      exactly, at Q = T = 800, ragged, without rad_q, with ties, all
      disabled, with 16- and 64-byte descriptors and the split cases; and
@@ -465,11 +472,35 @@ def build_slice(dev):
     return settings, rig, tables, images, pts, pose0, n
 
 
+def check_pose_calls(calls):
+    """The pose kernel's results at the main path's own launches against the
+    plain version on the same card tensors (tests/torch_pose_problems.py's
+    `compare`: the card test's tolerances)."""
+    from multicol_slam_tpu_torch.optim import ba
+
+    pp = tests_module("torch_pose_problems")
+    out = []
+    for i, (params, obs, got) in enumerate(calls):
+        cmp = pp.compare(params, obs, got, ba.pose_optimization_plain(params, obs))
+        cmp.update(rows=int(obs.pt.shape[0]), valid=int(obs.valid.sum()), L=int(params.points.shape[0]),
+                   inliers=int(got[2]), iters=got[3].tolist())
+        log(f"slice: pose kernel, stage {i + 1} ({cmp['rows']} rows, {cmp['valid']} valid, L {cmp['L']}): "
+            f"{cmp['inliers']} inliers, iterations {cmp['iters']}; against the plain version: pose within "
+            f"{cmp['pose_gap']:.2e} (tolerance {pp.POSE_TOL}), {cmp['differ']} flags differ, "
+            f"{cmp['differ_outside_band']} outside the gate band")
+        if not cmp["ok"]:
+            raise AssertionError(f"pose kernel, stage {i + 1}, against the plain version: {cmp}")
+        out.append(cmp)
+    return out
+
+
 def phase_slice(dev, state):
     import torch
     from multicol_slam_tpu_torch.ops.best_match import (
         KERNEL, KERNEL_SINGLE, masked_best_match_cams_plain,
     )
+    from multicol_slam_tpu_torch.optim.ba import POSE_KERNEL
+    from multicol_slam_tpu_torch.slam import tracking_kernels
     from multicol_slam_tpu_torch.slam.features import extract_features
     from multicol_slam_tpu_torch.slam.tracking_kernels import track_frame_fused, unpack_fused
 
@@ -482,10 +513,22 @@ def phase_slice(dev, state):
         return feats, track_frame_fused(mc6, intr, rig.cams, feats, pose0, pts, pts,
                                         radius1=15.0, radius2=4.0, th_desc=96.0, **extra)
 
+    pose_calls = []
+    solve = tracking_kernels.pose_optimization_iters
+
+    def capturing(params, obs):
+        out = solve(params, obs)
+        pose_calls.append((params, obs, out))
+        return out
     KERNEL.launches = KERNEL_SINGLE.launches = 0
-    feats, packed = frame()
-    torch.cuda.synchronize()
-    launches = KERNEL.launches
+    POSE_KERNEL.launches = 0
+    tracking_kernels.pose_optimization_iters = capturing
+    try:
+        feats, packed = frame()
+        torch.cuda.synchronize()
+    finally:
+        tracking_kernels.pose_optimization_iters = solve
+    launches, pose_launches = KERNEL.launches, POSE_KERNEL.launches
     if KERNEL_SINGLE.launches != 0:
         raise AssertionError("K2 launched on the tracking path")
     p = packed.cpu().numpy()
@@ -501,6 +544,10 @@ def phase_slice(dev, state):
         raise AssertionError(f"stage-2 inliers {n_inl2} < 100")
     if launches != 2:
         raise AssertionError(f"best-match kernel launched {launches} times in one frame, expected 2")
+    if pose_launches != 2 or len(pose_calls) != 2:
+        raise AssertionError(f"pose kernel launched {pose_launches} times in one frame ({len(pose_calls)} "
+                             f"pose_optimization calls), expected 2")
+    pose_cmp = check_pose_calls(pose_calls)
     _, packed_plain = frame(masked_best_match_cams_plain)
     q = unpack_fused(packed_plain.cpu().numpy())
     if not (np.array_equal(q[5], assign2) and np.array_equal(q[6], inl2) and q[4] == n_inl2):
@@ -508,13 +555,71 @@ def phase_slice(dev, state):
     dpose = float(np.abs(q[2] - pose2).max())
     if dpose > 1e-5:
         raise AssertionError(f"plain matcher pose differs by {dpose}")
-    log(f"slice: kernel launches in one frame = {launches}; plain matcher: same assignment "
-        f"and inliers, pose within {dpose:.2e}")
+    log(f"slice: kernel launches in one frame = {launches}, pose kernel launches {pose_launches}; plain "
+        f"matcher: same assignment and inliers, pose within {dpose:.2e}")
     captured = []
     frame(recording_match(captured))
     if len(captured) != 2:
         raise AssertionError(f"captured {len(captured)} K1 launches of one frame, expected 2")
-    return launches, frame, captured
+    return launches, frame, captured, dict(calls=pose_calls, cmp=pose_cmp, launches=pose_launches)
+
+
+def pose_kernel_ms(params, obs, calls=200):
+    """Device ms a launch of the pose kernel: torch.profiler's device time
+    of `pose_gn_kernel` over `calls` back-to-back launches, divided by
+    `calls`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from multicol_slam_tpu_torch.optim import ba
+
+    for _ in range(3):
+        ba.pose_optimization_cuda(params, obs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ba.pose_optimization_cuda(params, obs)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if "pose_gn_kernel" in e.key]
+    if len(evs) != 1 or evs[0].count != calls:
+        raise AssertionError(f"expected {calls} pose_gn_kernel launches in the profile, got {evs}")
+    return evs[0].device_time_total / calls / 1e3
+
+
+def phase_pose_timing(pose, card):
+    """The pose kernel at the main path's two launches (phase 3's): device
+    us a launch (`pose_kernel_ms`), the eager call (host dispatch
+    included), the plain version (CUDA events over eager calls: its time is
+    its dispatch), and two bounds. The chain bound: the launch's passes
+    over the rows (2 + both rounds' iterations) at the device time a pass
+    of a launch over its first 32 rows takes (one row a thread or none),
+    i.e. its chain of dependent block-wide steps with the row work taken
+    out. The HBM bound: its inputs read and outputs written once."""
+    from multicol_slam_tpu_torch.optim import ba
+    from multicol_slam_tpu_torch.optim.problem import Observations
+
+    rows = []
+    for i, (params, obs, got) in enumerate(pose["calls"]):
+        head = Observations(*(t[:32].contiguous() for t in obs))
+        head_passes = 2 + int(ba.pose_optimization_cuda(params, head)[3].sum())
+        passes = 2 + int(got[3].sum())
+        head_ms, ms = pose_kernel_ms(params, head), pose_kernel_ms(params, obs)
+        call_ms = time_cuda(lambda: ba.pose_optimization(params, obs), KERNEL_REPS)
+        ba.pose_optimization_plain(params, obs)
+        plain_ms = time_cuda(lambda: ba.pose_optimization_plain(params, obs), 3)
+        moved = sum(t.numel() * t.element_size() for t in (*params, *obs[1:]))
+        moved += obs.pt.shape[0] + 6 * 4 + 8 + 8
+        r = dict(launch=f"tracking stage {i + 1}", rows=int(obs.pt.shape[0]), valid=int(obs.valid.sum()),
+                 L=int(params.points.shape[0]), passes=passes, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                 chain_bound_ms=head_ms / head_passes * passes, hbm_bound_ms=moved / HBM_BYTES_PER_S * 1e3)
+        log(f"timing: pose kernel, tracking stage {i + 1} ({r['rows']} rows, {r['valid']} valid, L {r['L']}, "
+            f"{passes} passes): {ms * 1e3:.2f} us a launch (profiler, 200 launches), called eagerly "
+            f"{call_ms * 1e3:.2f} us; "
+            f"plain version {plain_ms:.3f} ms (CUDA events, eager); chain bound {r['chain_bound_ms'] * 1e3:.2f} us "
+            f"({head_ms / head_passes * 1e3:.3f} us a pass of 32 rows), share {r['chain_bound_ms'] / ms:.3f}; "
+            f"HBM bound {r['hbm_bound_ms'] * 1e3:.4f} us [{card}]")
+        rows.append(r)
+    return rows
 
 
 def time_cuda(fn, reps):
@@ -2977,8 +3082,9 @@ def main(argv=None):
     try:
         max_err = timed("2 kernel", phase_kernel, dev)
         state = build_slice(dev)
-        launches, frame, cap_track = timed("3 slice", phase_slice, dev, state)
+        launches, frame, cap_track, pose = timed("3 slice", phase_slice, dev, state)
         tk = timed("4 timing (the bench's phase 1)", phase_timing, dev, state, frame, card)
+        pose_t = timed("4 pose kernel timing", phase_pose_timing, pose, card)
         entry = timed("19 (a) graft entry", phase_graft_entry, dev, card)
         k2_err = timed("5 k2", phase_k2, dev)
         boot = build_bootstrap(dev)
@@ -3116,6 +3222,26 @@ def main(argv=None):
         "split": split(1, BOOT_FEATS, BOOT_FEATS),
         "body": BODY,
         "split_sweep": [r for r in sweep if r["launch"].startswith("K2")],
+    }, {
+        "name": "pose_gn_kernel",
+        "route": "cuda",
+        "source": "multicol_slam_tpu_torch/csrc/pose_opt.cu",
+        "replaces": None,
+        "replaces_eager": "multicol_slam_tpu_torch/optim/ba.pose_optimization_plain",
+        "launches": pose["launches"],
+        "launches_by_path": {"tracking": pose["launches"]},
+        "max_pose_gap": max(c["pose_gap"] for c in pose["cmp"]),
+        "ms": pose_t[0]["ms"],
+        "plain_ms": pose_t[0]["plain_ms"],
+        "call_ms": pose_t[0]["call_ms"],
+        "plain_call_ms": pose_t[0]["plain_ms"],
+        "library_ms": None,
+        "bound_ms": pose_t[0]["chain_bound_ms"],
+        "bound": "chain of dependent passes",
+        "share_of_bound": pose_t[0]["chain_bound_ms"] / pose_t[0]["ms"],
+        "hbm_bound_ms": pose_t[0]["hbm_bound_ms"],
+        "stages": [dict(r, **{k: c[k] for k in ("pose_gap", "differ", "differ_outside_band", "iters")})
+                   for r, c in zip(pose_t, pose["cmp"])],
     }]}))
     log(f"time: the whole script {time.perf_counter() - t_start:.1f} s; by phase "
         + json.dumps({k: round(v, 1) for k, v in phase_s.items()}))

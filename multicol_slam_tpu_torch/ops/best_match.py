@@ -33,23 +33,17 @@ last block of each query tile. `masked_best_match_cams_split_plain` is that
 split and merge in PyTorch, for the tests.
 
 Each wrapper runs its plain version for CPU tensors only. For CUDA tensors
-it launches its kernel or raises. The library is built with nvcc for sm_90a
-at first use, into `multicol_slam_tpu_torch/build/`.
+it launches its kernel or raises. The kernels live in the port's one CUDA
+library (`ops/cuda_lib.py`), built with nvcc for sm_90a at first use.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from multicol_slam_tpu_torch.ops.cuda_lib import CSRC, KernelEntry, check_all
 from multicol_slam_tpu_torch.ops.matching import hamming_matrix, hamming_matrix_masked
 from multicol_slam_tpu_torch.utils import tracing
 
@@ -58,116 +52,15 @@ QUERY_TILE = 64    # queries of a block: 4 warps x the 16 rows of an mma tile
 TARGET_TILE = 64   # targets of a shared-memory stage
 MIN_BLOCKS = 528   # four blocks for each of the H100's 132 SMs
 BODY = "tensor cores: mma.sync m16n8k256 b1 AND+POPC, 2 products a pair (4 with masks)"
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "best_match.cu"
-BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCE = CSRC / "best_match.cu"
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
-
-def _find_nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root and Path(root, "bin", "nvcc").is_file():
-            return str(Path(root, "bin", "nvcc"))
-    raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
-
-
-class _Library:
-    """The shared library built from `SOURCE`, compiled once per content and
-    loaded once: a lock serialises the build and the load, so that the first
-    calls of the tracker and of the mapping worker make one library."""
-
-    def __init__(self):
-        self.log = ""
-        self._lib = None
-        self._lock = threading.RLock()
-
-    def build(self) -> Path:
-        """Compile the source (once per content) and return the library path."""
-        with self._lock:
-            return self._build()
-
-    def _build(self) -> Path:
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-        lib = BUILD_DIR / f"libbest_match_{tag}.so"
-        if lib.is_file():
-            return lib
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run([_find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                                  capture_output=True, text=True)
-            self.log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{self.log}")
-            os.replace(tmp, lib)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-        return lib
-
-    def symbol(self, name: str):
-        with self._lock:
-            if self._lib is None:
-                self._lib = ctypes.CDLL(str(self.build()))
-            return getattr(self._lib, name)
-
-
-_LIBRARY = _Library()
-
-
-class BestMatchKernel:
-    """One entry point of the library and its launch count. `launches` goes
-    up by one each time the entry's wrapper launches it (`count`), and
-    nowhere else; `by_thread` splits the same count by the launching
-    thread's name (the tracker and the mapping worker both launch K1)."""
-
-    def __init__(self, symbol: str, argtypes):
-        self.symbol_name = symbol
-        self.argtypes = argtypes
-        self.launches = 0
-        self.by_thread: Dict[str, int] = {}
-        self._fn = None
-        self._count_lock = threading.Lock()
-
-    def count(self):
-        with self._count_lock:
-            self.launches += 1
-            name = threading.current_thread().name
-            self.by_thread[name] = self.by_thread.get(name, 0) + 1
-
-    def thread_launches(self) -> int:
-        """The launches made so far by the calling thread."""
-        return self.by_thread.get(threading.current_thread().name, 0)
-
-    def build(self) -> Path:
-        return _LIBRARY.build()
-
-    @property
-    def build_log(self) -> str:
-        return _LIBRARY.log
-
-    def function(self):
-        if self._fn is None:
-            fn = _LIBRARY.symbol(self.symbol_name)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
-
-
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # K1, masked_best_match_cams
-KERNEL = BestMatchKernel("mcslam_best_match", [_P] * 7 + [_I] + [_P] * 3 + [_I] * 4 + [_F] + [_I] + [_P] * 6)
+KERNEL = KernelEntry("mcslam_best_match", [_P] * 7 + [_I] + [_P] * 3 + [_I] * 4 + [_F] + [_I] + [_P] * 6)
 # K2, masked_best_match
-KERNEL_SINGLE = BestMatchKernel("mcslam_best_match_single", [_P] * 8 + [_I] * 3 + [_F] + [_I] + [_P] * 5)
+KERNEL_SINGLE = KernelEntry("mcslam_best_match_single", [_P] * 8 + [_I] * 3 + [_F] + [_I] + [_P] * 5)
 
 
 def window_mask(uv_q, oct_q, uv_t, rad_t, lvl_t, rad_q=None, level_tol: float = 1.0) -> torch.Tensor:
@@ -272,18 +165,6 @@ def _scratch(C: int, Q: int, T: int, chunk: int, dev) -> torch.Tensor:
     return torch.empty(3 * C * S * Q + C * -(-Q // QUERY_TILE), dtype=torch.int32, device=dev)
 
 
-def _check_all(checks, dev):
-    """Dtype, shape, contiguity, device and 4-byte alignment of each input."""
-    for name, t, dtype, shape in checks:
-        if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
-            raise ValueError(f"{name}: expected contiguous {dtype} {tuple(shape)}, "
-                             f"got {t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}")
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, desc_q on {dev}")
-        if t.data_ptr() % 4:
-            raise ValueError(f"{name} is not 4-byte aligned")
-
-
 def masked_best_match_cams(
     desc_q: torch.Tensor,    # [C, Q, B] uint8
     uv_q: torch.Tensor,      # [C, Q, 2] f32
@@ -340,7 +221,7 @@ def _best_match_cams(desc_q, uv_q, oct_q, desc_t, uv_t, rad_t, lvl_t, rad_q, mas
         if (mask_t.dim() == 2) != shared:
             raise ValueError("mask_t must be shared across cameras exactly when desc_t is")
         checks += [("mask_q", mask_q, torch.uint8, (C, Q, B)), ("mask_t", mask_t, torch.uint8, t_shape)]
-    _check_all(checks, dev)
+    check_all(checks, dev)
     best = torch.empty((C, Q), dtype=torch.float32, device=dev)
     second = torch.empty((C, Q), dtype=torch.float32, device=dev)
     idx = torch.empty((C, Q), dtype=torch.int32, device=dev)
@@ -417,7 +298,7 @@ def masked_best_match(
         rad_q = torch.full((Q,), BIG, dtype=torch.float32, device=dev)
     oct_q = oct_q.to(torch.float32)
     lvl_t = lvl_t.to(torch.float32)
-    _check_all([("desc_q", desc_q, torch.uint8, (Q, B)), ("uv_q", uv_q, torch.float32, (Q, 2)),
+    check_all([("desc_q", desc_q, torch.uint8, (Q, B)), ("uv_q", uv_q, torch.float32, (Q, 2)),
                 ("oct_q", oct_q, torch.float32, (Q,)), ("rad_q", rad_q, torch.float32, (Q,)),
                 ("desc_t", desc_t, torch.uint8, (T, B)), ("uv_t", uv_t, torch.float32, (T, 2)),
                 ("rad_t", rad_t, torch.float32, (T,)), ("lvl_t", lvl_t, torch.float32, (T,))], dev)

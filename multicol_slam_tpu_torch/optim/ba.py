@@ -11,20 +11,28 @@ constants. Loop closing adds two Gauss-Newton solvers:
 Their Jacobians are forward-mode autodiff (`torch.func`), as the
 reference's `jax.jacfwd`; the essential graph's sums over edges are the
 deterministic segment sums of optim/lm.py (a scatter-add on CUDA adds in
-atomic order)."""
+atomic order).
+
+Tracking's `pose_optimization` (two robust rounds of pose-only
+Gauss-Newton) is one launch of a hand-written kernel on the card
+(`csrc/pose_opt.cu`, in the library of `ops/cuda_lib.py`); its plain
+version, `pose_optimization_plain`, runs for CPU tensors and is what the
+tests hold the kernel to."""
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 from torch.func import jacfwd, jvp, vmap
 
+from multicol_slam_tpu_torch.ops.cuda_lib import KernelEntry, check_all
 from multicol_slam_tpu_torch.optim.lm import (
     LMConfig, _segsum, lm_solve, lm_solve_interruptible, pose_only_solve, segments,
 )
 from multicol_slam_tpu_torch.optim.problem import (
-    BAParams, FreeMask, Observations, intr_project, residuals_only,
+    INTR_DIM, BAParams, FreeMask, Observations, intr_project, residuals_only,
 )
 from multicol_slam_tpu_torch.utils.geometry import (
     cayley_to_hom, hom_inverse, sim3_apply, sim3_compose, sim3_exp, sim3_inverse, sim3_log, transform_points,
@@ -33,18 +41,92 @@ from multicol_slam_tpu_torch.utils.geometry import (
 CHI2_BA = 5.991                      # Huber sqrt(5.991) in BA
 POSE_HUBER = 1.345 * 2.0             # cOptimizer.cpp:344 (huberMultiplier = 2)
 CHI2_POSE = POSE_HUBER * POSE_HUBER  # outlier demotion threshold
+POSE_ITERS = 10                      # Gauss-Newton iterations a pose-only round
+POSE_LAM = 1e-3                      # the pose-only rounds' initial damping
 SIM3_HUBER = 1.345 * 4.0
 SIM3_CHI2 = 9.210                    # the inlier gate of both Sim3 edges
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# both rounds of pose_optimization, csrc/pose_opt.cu
+POSE_KERNEL = KernelEntry("mcslam_pose_opt", [_P, _P, _I] + [_P] * 5 + [_I, _P, _P, _I, _I, _F, _F, _F] + [_P] * 6)
+_POSE_SCRATCH_BYTES = KernelEntry("mcslam_pose_opt_scratch_bytes", [_I, _I], ctypes.c_size_t)
 
 
 def pose_optimization(params: BAParams, obs: Observations):
     """Two rounds of pose-only optimization with chi2 outlier demotion between
-    them. Returns (poses [K, 6], inlier mask [O], n_inliers)."""
-    p1, chi2 = pose_only_solve(params, obs, n_iters=10, huber_delta=POSE_HUBER)
+    them. Returns (poses [K, 6], inlier mask [O], n_inliers).
+
+    The inputs must pass `check_pose_inputs` on every device. CPU tensors
+    take the plain version, CUDA tensors the kernel (one launch for both
+    rounds); any other device raises."""
+    return pose_optimization_iters(params, obs)[:3]
+
+
+def pose_optimization_iters(params: BAParams, obs: Observations):
+    """`pose_optimization` and the iterations each round ran before it
+    stopped: (poses, inlier, n_inliers, iters), iters an int32 [2] on the
+    card (the kernel's, not read here) and None on the CPU."""
+    check_pose_inputs(params, obs)
+    dev = params.poses.device
+    if dev.type == "cpu":
+        return (*pose_optimization_plain(params, obs), None)
+    if dev.type == "cuda":
+        return pose_optimization_cuda(params, obs)
+    raise ValueError(f"pose_optimization: no kernel for device {dev}")
+
+
+def pose_optimization_plain(params: BAParams, obs: Observations):
+    """The plain version of `pose_optimization`: two eager
+    `pose_only_solve` rounds."""
+    p1, chi2 = pose_only_solve(params, obs, n_iters=POSE_ITERS, huber_delta=POSE_HUBER, lam=POSE_LAM)
     inl = obs.valid & (chi2 < CHI2_POSE)
-    p2, chi2b = pose_only_solve(p1, obs._replace(valid=inl), n_iters=10, huber_delta=POSE_HUBER)
+    p2, chi2b = pose_only_solve(p1, obs._replace(valid=inl), n_iters=POSE_ITERS, huber_delta=POSE_HUBER,
+                                lam=POSE_LAM)
     inl2 = obs.valid & (chi2b < CHI2_POSE)
     return p2.poses, inl2, inl2.sum()
+
+
+def check_pose_inputs(params: BAParams, obs: Observations):
+    """What the kernel reads: one float32 pose [1, 6] (K > 1 raises, as
+    in the plain version), points [L, 3], mc [C, 6] and intr [C, 22];
+    int64 pt and cam [O], float32 uv [O, 2] and inv_sigma2 [O], bool
+    valid [O]; contiguous, 4-byte aligned, on the pose's device. Raises
+    ValueError. obs.kf is not read (one pose)."""
+    if params.poses.dim() == 2 and params.poses.shape[0] > 1:
+        raise ValueError("pose_optimization is ported for a single pose (K = 1) only")
+    O, L, C = obs.pt.shape[0], params.points.shape[0], params.mc.shape[0]
+    f32 = torch.float32
+    check_all([("poses", params.poses, f32, (1, 6)), ("points", params.points, f32, (L, 3)),
+               ("mc", params.mc, f32, (C, 6)), ("intr", params.intr, f32, (C, INTR_DIM)),
+               ("pt", obs.pt, torch.int64, (O,)), ("cam", obs.cam, torch.int64, (O,)),
+               ("uv", obs.uv, f32, (O, 2)), ("inv_sigma2", obs.inv_sigma2, f32, (O,)),
+               ("valid", obs.valid, torch.bool, (O,))], params.poses.device)
+
+
+def pose_optimization_cuda(params: BAParams, obs: Observations):
+    """One launch of the kernel on the current stream, no sync: (poses
+    [1, 6], inlier [O], n_inliers, iters [2] int32: each round's
+    iterations before its stop). Inputs as `check_pose_inputs` says."""
+    dev = params.poses.device
+    O, L, C = obs.pt.shape[0], params.points.shape[0], params.mc.shape[0]
+    pose = torch.empty((1, 6), dtype=torch.float32, device=dev)
+    inlier = torch.empty((O,), dtype=torch.bool, device=dev)
+    n_inliers = torch.empty((), dtype=torch.int64, device=dev)
+    iters = torch.empty((2,), dtype=torch.int32, device=dev)
+    n_scratch = _POSE_SCRATCH_BYTES.function()(O, C)
+    scratch = torch.empty((n_scratch,), dtype=torch.uint8, device=dev) if n_scratch else None
+    fn = POSE_KERNEL.function()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(params.poses.data_ptr(), params.points.data_ptr(), L, obs.pt.data_ptr(), obs.cam.data_ptr(),
+                 obs.uv.data_ptr(), obs.inv_sigma2.data_ptr(), obs.valid.data_ptr(), O,
+                 params.mc.data_ptr(), params.intr.data_ptr(), C, POSE_ITERS, POSE_HUBER, CHI2_POSE, POSE_LAM,
+                 pose.data_ptr(), inlier.data_ptr(), n_inliers.data_ptr(), iters.data_ptr(),
+                 scratch.data_ptr() if scratch is not None else None, stream)
+    if err != 0:
+        raise RuntimeError(f"pose_opt kernel launch failed: cudaError_t {err}")
+    POSE_KERNEL.count()
+    return pose, inlier, n_inliers, iters
 
 
 def _config(max_iters: int, cg_iters: int) -> LMConfig:

@@ -43,6 +43,7 @@ import queue
 import threading
 import time
 import traceback
+from collections import deque
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -139,6 +140,11 @@ class MultiColSLAM:
     seeded with `seed` too). `match_fn` is the
     best-match kernel's wrapper, or its plain version to compare against."""
 
+    # async: an insertion waits for the worker once it has cut this many
+    # keyframes in a row short (`_wait_for_mapper`); with 1 at most every
+    # other keyframe goes unrefined
+    KF_CUT_WAIT = 1
+
     def __init__(
         self,
         rig: MultiCamRig,
@@ -188,7 +194,9 @@ class MultiColSLAM:
         self.state = NO_IMAGES_YET
         self.frame_id = -1
         self.last_pose = np.zeros(6, np.float32)
+        # the motion that carries last_pose to the next frame to begin
         self.velocity = np.eye(4, dtype=np.float32)
+        self._finished = deque(maxlen=4)   # (frame id, Mt) of the last tracked frames
         self.ref_feats: Optional[FrameFeatures] = None
         self.last_feats: Optional[FrameFeatures] = None
         self.last_assign_global: Optional[np.ndarray] = None  # feature -> global point id
@@ -201,6 +209,11 @@ class MultiColSLAM:
         self._interrupt_ba = False     # InterruptBA request (cLocalMapping.cpp:515)
         # insertions that passed the gates but were deferred: the mapper was busy
         self._kf_deferred_busy = 0
+        # async: the worker's last keyframes in a row whose fusion or BA an
+        # interruption cut short, and the insertions that waited for it
+        self._kf_cut = 0
+        self._kf_waited = 0
+        self._tracker_waiting = False
         self._force_reloc = False
         # localization mode: track against the map without changing it
         self.localization_only = False
@@ -381,7 +394,7 @@ class MultiColSLAM:
         for a dispatch credit and spend it, then wait (at most 0.05 s) for
         the tracker to be between frames. A no-op on the tracker's own
         thread (its synchronous mapping of the first keyframes)."""
-        if self._frame_idle is None or threading.get_ident() == self._tracker_tid:
+        if self._frame_idle is None or threading.get_ident() == self._tracker_tid or self._tracker_waiting:
             return
         with self._budget_cv:
             if self._budget <= 0:
@@ -454,6 +467,7 @@ class MultiColSLAM:
         self.mapper.run(k2, do_ba=False)
         self.last_pose = s.kf_pose[k2].copy()
         self.velocity = np.eye(4, dtype=np.float32)
+        self._finished.clear()
         self.last_kf_id = k2
         self.frames_since_kf = 0
         self.last_assign_global = s.kf_point[k2].copy()
@@ -543,7 +557,7 @@ class MultiColSLAM:
                 _, _, pose_f2, n_match2, n_inl, assign, inl = unpack_fused(packed.cpu().numpy())
             ok = n_inl >= MIN_TRACK_INLIERS
         if ok:
-            self._finish_frame(pose_f2)
+            self._finish_frame(pose_f2, m.frame_id)
             matched = (assign >= 0) & inl
             assign_global[matched] = h.pt_ids2[assign[matched]]
             with self.map_lock:       # mnVisible / mnFound
@@ -589,6 +603,9 @@ class MultiColSLAM:
             baseline = float(np.linalg.norm(cayley_to_hom_np(self.last_pose)[:3, 3]
                                             - cayley_to_hom_np(ref_pose)[:3, 3]))
         if (c1a or c1b) and c2 and baseline > 0.2:
+            if self._kf_queue is not None and self._kf_cut >= self.KF_CUT_WAIT:
+                self._wait_for_mapper()
+                mapper_idle = True
             if mapper_idle:
                 self._create_keyframe(feats, h.timestamp, assign_global, m.frame_id)
                 m.is_keyframe = True
@@ -597,10 +614,40 @@ class MultiColSLAM:
                 self._interrupt_ba = True
                 self._kf_deferred_busy += 1
 
-    def _finish_frame(self, new_pose: np.ndarray):
-        Mt_last = cayley_to_hom_np(self.last_pose)
+    def _wait_for_mapper(self):
+        """Back-pressure on the tracker: the worker cut its last KF_CUT_WAIT
+        keyframes short (a newer keyframe or the tracker's request stopped
+        their fusion or BA), so before the next insertion the tracker waits,
+        with the worker's gate open, until the worker has mapped (and passed
+        to the loop closer) what it holds; nothing new is queued meanwhile,
+        so that keyframe is mapped whole. A tracker faster than the worker
+        otherwise cuts every keyframe short and outruns its map."""
+        self._kf_waited += 1
+        self._tracker_waiting = True
+        self._frame_idle.set()
+        with self._budget_cv:
+            self._budget_cv.notify_all()
+        try:
+            self._kf_queue.join()
+        finally:
+            self._tracker_waiting = False
+            self._frame_idle.clear()
+
+    def _finish_frame(self, new_pose: np.ndarray, frame_id: int):
+        """The motion model: constant velocity over the k frames from this one
+        to the next to begin (k = 1 + the frames still in flight), measured
+        from the tracked frame k back, else over one frame. With a frame in
+        flight a pipelined loop then predicts frame t + 1 from its own chain
+        (t - 1 and t - 3). The one-frame velocity (t - 2 to t - 1) made the
+        prediction error 2 e(t-1) - e(t-2): the two chains fed each other,
+        and the mode alternating between them grew once the solve left more
+        than a third of it."""
         Mt_new = cayley_to_hom_np(new_pose)
-        self.velocity = (np.linalg.inv(Mt_last) @ Mt_new).astype(np.float32)
+        k = self._n_inflight + 1
+        back = [Mt for f, Mt in self._finished if f == frame_id - k] if k > 1 else []
+        Mt_ref = back[0] if back else cayley_to_hom_np(self.last_pose)
+        self.velocity = (np.linalg.inv(Mt_ref) @ Mt_new).astype(np.float32)
+        self._finished.append((frame_id, Mt_new))
         self.last_pose = np.asarray(new_pose, np.float32)
 
     def _local_map_points(self, seed_pts: np.ndarray) -> np.ndarray:
@@ -676,8 +723,16 @@ class MultiColSLAM:
                     return
                 try:
                     self._interrupt_ba = False
+                    cut = []
+
+                    def interrupt():
+                        stop = self._interrupt_ba or not self._kf_queue.empty()
+                        if stop:
+                            cut.append(k)
+                        return stop
                     with tracing.span("map.keyframe", "keyframe", k, cpu=True):
-                        self.mapper.run(k, interrupt=lambda: self._interrupt_ba or not self._kf_queue.empty())
+                        self.mapper.run(k, interrupt=interrupt)
+                    self._kf_cut = self._kf_cut + 1 if cut else 0
                     if self.loop_closer is not None:
                         with tracing.span("loop.process", "keyframe", k, cpu=True):
                             closed = self.loop_closer.process(k)
@@ -774,6 +829,7 @@ class MultiColSLAM:
                 self._last_reloc_frame = self.frame_id
                 self.last_pose = pose_f.copy()
                 self.velocity = np.eye(4, dtype=np.float32)
+                self._finished.clear()
                 ag = np.full(s.cfg.feats_per_kf, BAD_ID, np.int32)
                 matched = (assign >= 0) & inl
                 ag[matched] = pt_ids2[assign[matched]]
@@ -815,6 +871,8 @@ class MultiColSLAM:
         self.ref_feats = None
         self.last_assign_global = None
         self.velocity = np.eye(4, dtype=np.float32)
+        self._finished.clear()
+        self._kf_cut = 0
         self._epoch += 1
         self.ref_kf_id = -1
         self._last_reloc_frame = -(10 ** 9)

@@ -5,7 +5,8 @@ Each stage projects the local map into every camera, gates it (in front,
 inside the mirror, scale band, viewing angle), takes every feature's best
 map point inside its window and level band with the best-match kernel
 (`ops/best_match.py`), settles duplicate claims, and runs two rounds of
-robust pose-only Gauss-Newton. `track_frame_fused` runs the motion-model
+robust pose-only Gauss-Newton (on the card, one launch of the pose kernel,
+`optim/ba.pose_optimization`). `track_frame_fused` runs the motion-model
 stage and the local-map stage and packs the result into one tensor, with
 no host sync on the way. `match_window_frames` matches two frames camera by
 camera with two launches of the same kernel (forward and swapped, for the
@@ -22,7 +23,7 @@ import torch
 from multicol_slam_tpu_torch.models.camera import OmniCamera, in_mirror_mask
 from multicol_slam_tpu_torch.ops.best_match import BIG, masked_best_match_cams
 from multicol_slam_tpu_torch.ops.matching import rotation_consistency
-from multicol_slam_tpu_torch.optim.ba import pose_optimization
+from multicol_slam_tpu_torch.optim.ba import pose_optimization_iters
 from multicol_slam_tpu_torch.optim.problem import BAParams, Observations, intr_project
 from multicol_slam_tpu_torch.slam.features import FrameFeatures
 from multicol_slam_tpu_torch.utils import tracing
@@ -162,8 +163,15 @@ def track_stage(
         inv_sigma2=(1.0 / torch.pow(scale_factor, 2.0 * feats.octave.to(torch.float32))).reshape(C * K),
         valid=keep,
     )
-    with tracing.span("track.pose"):
-        poses_out, inl, n_inl = pose_optimization(BAParams(pose0[None], pts.X, mc6, intr), obs)
+    with tracing.span("track.pose") as sp:
+        params = BAParams(pose0[None].contiguous(), pts.X.contiguous(), mc6.contiguous(), intr.contiguous())
+        poses_out, inl, n_inl, iters = pose_optimization_iters(params, obs)
+        if sp is not None:
+            # rows, the valid ones and (on the card) both rounds' iterations;
+            # device values are read when the counters are
+            sp.count(rows=keep.shape[0], valid_rows=lambda: keep.sum())
+            if iters is not None:
+                sp.count(iters=lambda: iters.sum())
     packed = torch.cat([
         poses_out[0],
         torch.stack([n_matches, n_inl]).to(torch.float32),

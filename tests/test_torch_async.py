@@ -39,7 +39,7 @@ from multicol_slam_tpu.utils.config import ExtractorSettings as JExtractor
 from multicol_slam_tpu.utils.config import SlamSettings as JSettings
 from multicol_slam_tpu_torch import convert
 from multicol_slam_tpu_torch.io.synthetic import make_world
-from multicol_slam_tpu_torch.ops import best_match
+from multicol_slam_tpu_torch.ops import cuda_lib
 from multicol_slam_tpu_torch.slam import local_mapping as tlm
 from multicol_slam_tpu_torch.slam import loop_closing as tlc
 from multicol_slam_tpu_torch.slam.map_store import MapConfig
@@ -349,7 +349,7 @@ def test_correct_loop_lock_discipline(world, sync_run):
 def test_library_builds_and_loads_once(monkeypatch):
     """Two threads' first calls into the kernel library: one build, one
     load, the same symbol (the build stubbed: no nvcc here)."""
-    lib = best_match._Library()
+    lib = cuda_lib.Library()
     builds, loads = [], []
 
     def slow_build():
@@ -362,7 +362,7 @@ def test_library_builds_and_loads_once(monkeypatch):
             loads.append(path)
             self.mcslam_best_match = object()
     monkeypatch.setattr(lib, "build", slow_build)
-    monkeypatch.setattr(best_match.ctypes, "CDLL", FakeCDLL)
+    monkeypatch.setattr(cuda_lib.ctypes, "CDLL", FakeCDLL)
     start = threading.Barrier(2)
     got = []
 
@@ -383,7 +383,7 @@ def test_launch_counts_by_thread():
     """Counts from more threads than cores add up, split by thread name
     (a lost update would break the sum; the switch interval is shortened
     to interleave the threads as often as it can)."""
-    k = best_match.BestMatchKernel("none", [])
+    k = cuda_lib.KernelEntry("none", [])
     n = 2 * (os.cpu_count() or 4)
     barrier = threading.Barrier(n)
 
@@ -404,3 +404,70 @@ def test_launch_counts_by_thread():
     assert not any(th.is_alive() for th in threads)
     assert k.launches == 2000 * n and k.by_thread == {f"t{i}": 2000 for i in range(n)}
     assert k.thread_launches() == 0
+
+
+@pytest.mark.parametrize("in_flight", [0, 1])
+def test_motion_model_predicts_each_frame_from_its_own_chain(in_flight):
+    """The velocity after frame t carries it to the next frame to begin,
+    1 + in_flight frames on. With a frame in flight (the depth-2 loop) it
+    comes from frame t - 2, so an error of the other chain (the odd frames
+    here, 0.02 off in x) leaves the even chain's prediction exact; without
+    one it is the last frame's motion, as it always was."""
+    from collections import deque
+
+    from multicol_slam_tpu_torch.utils.geometry import cayley_to_hom, hom_to_cayley
+
+    slam = MultiColSLAM.__new__(MultiColSLAM)
+    slam._finished, slam._n_inflight = deque(maxlen=4), in_flight
+    slam.last_pose, slam.velocity = np.zeros(6, np.float32), np.eye(4, dtype=np.float32)
+
+    def pose(t):
+        return np.array([0.0, 0.0, 0.0, 0.05 * t + (0.02 if t % 2 else 0.0), 0.0, 0.0], np.float32)
+    for t in range(5):
+        slam._finish_frame(pose(t), t)
+    pred = hom_to_cayley(cayley_to_hom(torch.tensor(slam.last_pose)) @ torch.tensor(slam.velocity)).numpy()
+    want = pose(4 + 1 + in_flight) if in_flight else 2 * pose(4) - pose(3)
+    np.testing.assert_allclose(pred, want, atol=1e-6)
+
+
+def test_tracker_waits_for_a_worker_that_cut_its_keyframe():
+    """The worker counts keyframes whose fusion or BA an interruption cut
+    short (a newer keyframe queued); `_wait_for_mapper` then holds the
+    tracker until the worker has mapped what it holds, with the worker's
+    gate open (no credits, yet each yield returns at once), and closes
+    the gate again after."""
+    import queue
+
+    slam = MultiColSLAM.__new__(MultiColSLAM)
+    slam._kf_queue, slam._frame_idle, slam._budget_cv = queue.Queue(), threading.Event(), threading.Condition()
+    slam._budget, slam._tracker_tid, slam._map_stream, slam.loop_closer = 0, threading.get_ident(), None, None
+    slam._interrupt_ba, slam._kf_cut, slam._kf_waited, slam._tracker_waiting = False, 0, 0, False
+    slam.worker_errors = []
+    release, yields, cut_before = threading.Event(), [], []
+
+    class Mapper:
+        def run(self, k, interrupt):
+            cut_before.append(slam._kf_cut)
+            if k == 0:
+                release.wait(5.0)       # keyframe 1 is queued meanwhile: 0 is cut
+            t0 = time.perf_counter()
+            for _ in range(5):
+                slam._yield_to_tracker()
+            yields.append(time.perf_counter() - t0)
+            interrupt()
+    slam.mapper = Mapper()
+    worker = threading.Thread(target=slam._mapping_worker, daemon=True)
+    worker.start()
+    slam._kf_queue.put(0)
+    slam._kf_queue.put(1)
+    release.set()
+    slam._kf_queue.join()
+    assert cut_before == [0, 1] and slam._kf_cut == 0     # 0 cut, then 1 mapped whole
+    slam._kf_cut = 1
+    slam._kf_queue.put(2)
+    slam._wait_for_mapper()
+    assert slam._kf_queue.unfinished_tasks == 0 and slam._kf_waited == 1
+    assert yields[-1] < 0.05 and not slam._tracker_waiting and not slam._frame_idle.is_set()
+    slam._kf_queue.put(None)
+    worker.join(5.0)
+    assert not worker.is_alive() and slam.worker_errors == []

@@ -12,7 +12,9 @@ repository's bench.py on the CPU.
   loop (bench.py:236-265, rebuilt here around the JAX package's
   MultiColSLAM) on test_slam_e2e.py's line world (2 cameras of 256x192,
   250 oracle features), sync mapping, 30 frames, the port fed JAX's
-  RANSAC draws: states and keyframe frames equal; inliers within 2 % (at
+  RANSAC draws, and on the same line with a speed that swings between
+  0.02 and 0.08 m a frame (where the two packages' depth-2 motion models
+  differ by design): states and keyframe frames equal; inliers within 2 % (at
   least 1) and poses within 1e-2, the agreement the two packages' sync
   runs of this world have (exact inliers and 1e-3 poses hold at neither
   depth: float32 rounding flips single robust-gate decisions from frame 4
@@ -25,6 +27,7 @@ repository's bench.py on the CPU.
   `tunnel_rtt_ms`.
 """
 import ast
+import dataclasses
 import importlib
 import os
 import sys
@@ -179,8 +182,7 @@ def _port_settings():
     return SlamSettings(fps=25.0, extractor=ExtractorSettings(n_features=N_FEATS, n_levels=1))
 
 
-def test_depth2_pipeline_matches_the_references_loop(line_world):
-    w = line_world
+def _depth2_parity(w, inlier_rel=INLIER_REL, pose_tol=POSE_TOL):
     jfeats = [w.frame_features(t) for t in range(N_FRAMES)]
     js = JSLAM(w.rig, JSettings(fps=25.0, extractor=JExtractor(n_features=N_FEATS, n_levels=1)), JMapConfig(**MAP),
                use_loop_closing=False, seed=SEED)
@@ -197,9 +199,34 @@ def test_depth2_pipeline_matches_the_references_loop(line_world):
     assert sum(m.state == WORKING for m in tt) >= N_FRAMES - 5
     assert [m.frame_id for m in tt if m.is_keyframe] == jkf
     nj, nt = np.array([m.n_inliers for m in jt]), np.array([m.n_inliers for m in tt])
-    assert (np.abs(nt - nj) <= np.maximum(1, INLIER_REL * nj)).all(), (nt - nj).tolist()
+    assert (np.abs(nt - nj) <= np.maximum(1, inlier_rel * nj)).all(), (nt - nj).tolist()
     np.testing.assert_allclose(np.stack([m.pose for m in tt]), np.stack([np.asarray(m.pose) for m in jt]),
-                               rtol=0, atol=POSE_TOL)
+                               rtol=0, atol=pose_tol)
+    return jt, tt
+
+
+def test_depth2_pipeline_matches_the_references_loop(line_world):
+    _depth2_parity(line_world)
+
+
+def test_depth2_pipeline_matches_the_references_loop_when_velocity_changes(line_world):
+    """The same parity where the speed along the line swings between 0.02
+    and 0.08 m a frame. The motion models differ here by design: at depth
+    2 the port predicts frame t + 1 from frame t - 1 with the velocity over
+    t - 3 -> t - 1 (its own chain), the JAX package with the one-frame
+    velocity t - 2 -> t - 1 (ROADMAP, accepted differences). On this world
+    the port with the JAX package's model ends 1.65 % of inliers and 0.0125
+    in pose from it (the packages round apart, as on the line); with its own
+    model 2.06 % and the same 0.0125. So the bounds are 2.5 % and 0.015,
+    and the port's largest error against the true poses may exceed the
+    reference's by 5 % at most (0.0829 against 0.0831 m)."""
+    t = np.arange(N_FRAMES)
+    poses = np.array(line_world.poses)
+    poses[:, 3] = 0.05 * t + 0.1 * np.sin(2.0 * np.pi * t / 20.0)
+    jt, tt = _depth2_parity(dataclasses.replace(line_world, poses=poses.astype(np.float32)), inlier_rel=0.025,
+                            pose_tol=0.015)
+    err = [np.abs(np.stack([np.asarray(m.pose) for m in tr]) - poses).max() for tr in (tt, jt)]
+    assert err[0] <= 1.05 * err[1], err
 
 
 def test_async_depth2_run(line_world):

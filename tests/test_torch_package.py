@@ -106,21 +106,22 @@ def test_image_readers_only_inside_load_gray(path):
 
 
 def test_kernel_source_ships_with_the_package():
-    from multicol_slam_tpu_torch.ops import best_match
+    from multicol_slam_tpu_torch.ops import best_match, cuda_lib
 
-    assert best_match.SOURCE.is_file()
-    assert best_match.BUILD_DIR.parent == best_match.SOURCE.parent.parent
+    assert best_match.SOURCE in cuda_lib.SOURCES
+    for src in cuda_lib.SOURCES:
+        assert src.is_file() and cuda_lib.BUILD_DIR.parent == src.parent.parent
 
 
 def test_package_data_lists_every_source():
     """pyproject.toml ships every source that the port builds at first use
     (csrc/*.cu by nvcc, csrc/*.cpp by g++)."""
     from multicol_slam_tpu_torch import native
-    from multicol_slam_tpu_torch.ops import best_match
+    from multicol_slam_tpu_torch.ops import cuda_lib
 
     text = (ROOT / "pyproject.toml").read_text()
     line = next(ln for ln in text.splitlines() if ln.startswith("multicol_slam_tpu_torch ="))
-    for src in (best_match.SOURCE, native.SOURCE):
+    for src in (*cuda_lib.SOURCES, native.SOURCE):
         assert f'"csrc/*{src.suffix}"' in line, (src.name, line)
 
 
