@@ -5,9 +5,14 @@ All cameras go through each step together, the camera axis being a tensor
 dimension: pyramid, box blur, dense FAST with 3x3 NMS, grid top-K, IC angles,
 descriptors (ORB, or with `use_mdbrief` dBRIEF, and mdBRIEF's stability
 masks with `learn_masks`), unit rays. The output is a fixed-capacity
-`FrameFeatures`, K = n_features slots per camera with a validity mask. `downselect_features`
-reduces a frame of the bootstrap's init bank (2x features at FAST threshold
-5) to the runtime capacity, on the host.
+`FrameFeatures`, K = n_features slots per camera with a validity mask.
+`downselect_features` reduces a frame of the bootstrap's init bank (2x
+features at FAST threshold 5) to the runtime capacity, on the host.
+
+With the tracer on (utils/tracing.py), each level's IC angles and
+descriptors run under a `features.describe` span, with the counters level,
+keypoints (valid slots) and mask_bits_kept (the share of set mask bits over
+them).
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from multicol_slam_tpu_torch.models.camera import OmniCamera, img_to_world, mirr
 from multicol_slam_tpu_torch.ops import brief as brief_ops
 from multicol_slam_tpu_torch.ops import fast as fast_ops
 from multicol_slam_tpu_torch.ops import image as image_ops
+from multicol_slam_tpu_torch.utils import tracing
 from multicol_slam_tpu_torch.utils.config import ExtractorSettings
 
 EDGE_BORDER = 19  # detection border (keypoint patch safety)
@@ -103,23 +109,35 @@ def _extract_level(level_img, blurred, cams: OmniCamera, settings: ExtractorSett
     mmask = mirror_mask_grid(cams, h, w, scale=settings.scale_factor ** (-level))
     valid = nms & bmask & mmask & torch.isfinite(score)
     uv_l, resp, ok = fast_ops.select_topk_grid(score, valid, quota)
-    patches, r0, c0 = brief_ops.gather_sample_patches(blurred, uv_l)
-    ang = brief_ops.ic_angles_from_patches(patches, uv_l, r0, c0, tables.ic_wx, tables.ic_wy)
     uv0 = uv_l.to(torch.float32) * (settings.scale_factor ** level)
-    if settings.use_mdbrief:
-        # the pattern turns around the keypoint undistorted at level-0 pixels
-        # with each camera's scale factor a0 = pol[0]
-        a0 = cams.pol[:, 0]
-        undist = brief_ops.undistort_keypoints(cams.pol, cams.cde, cams.pp, a0, uv0)
-        desc, dmask = brief_ops.compute_dbrief_from_patches(
-            patches, uv_l, r0, c0, undist, ang, cams.invpol, cams.cde, cams.pp, a0, settings.desc_size,
-            bool(settings.learn_masks), pattern=tables.pattern)
-    else:
-        desc = brief_ops.compute_orb_from_patches(patches, uv_l, r0, c0, ang, settings.desc_size,
-                                                  pattern=tables.pattern)
-        dmask = torch.full_like(desc, 255)
+    with tracing.span("features.describe") as sp:
+        patches, r0, c0 = brief_ops.gather_sample_patches(blurred, uv_l)
+        ang = brief_ops.ic_angles_from_patches(patches, uv_l, r0, c0, tables.ic_wx, tables.ic_wy)
+        if settings.use_mdbrief:
+            # the pattern turns around the keypoint undistorted at level-0
+            # pixels with each camera's scale factor a0 = pol[0]
+            a0 = cams.pol[:, 0]
+            undist = brief_ops.undistort_keypoints(cams.pol, cams.cde, cams.pp, a0, uv0)
+            desc, dmask = brief_ops.compute_dbrief_from_patches(
+                patches, uv_l, r0, c0, undist, ang, cams.invpol, cams.cde, cams.pp, a0, settings.desc_size,
+                bool(settings.learn_masks), pattern=tables.pattern)
+        else:
+            desc = brief_ops.compute_orb_from_patches(patches, uv_l, r0, c0, ang, settings.desc_size,
+                                                      pattern=tables.pattern)
+            dmask = torch.full_like(desc, 255)
+        if sp is not None:
+            # device values, read when the counters are
+            sp.count(level=level, keypoints=lambda: ok.sum(), mask_bits_kept=lambda: _mask_share(dmask, ok))
     octave = torch.full(resp.shape, level, dtype=torch.int32, device=resp.device)
     return uv0, resp, octave, ang, desc, dmask, ok
+
+
+def _mask_share(dmask: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """The share of set mask bits over the valid slots (1 with no masks, 0
+    with no valid slot)."""
+    w = (1 << torch.arange(8, device=dmask.device)).to(torch.uint8)
+    kept = ((dmask[..., None] & w) > 0).flatten(-2).float().mean(-1)
+    return (kept * ok).sum() / ok.sum().clamp_min(1)
 
 
 def extract_features(

@@ -289,10 +289,10 @@ class MultiColSLAM:
         images = torch.as_tensor(images, device=self.device)
         if self._tables is None:
             self._tables = ExtractorTables(ex, images.shape[1], images.shape[2], device=self.device)
-        if self.state in (NO_IMAGES_YET, NOT_INITIALIZED, INITIALIZING):
-            return extract_features(images, self.rig.cams, ex, self._tables,
-                                    n_features=2 * ex.n_features, fast_th=5.0)
-        return extract_features(images, self.rig.cams, ex, self._tables)
+        init_bank = self.state in (NO_IMAGES_YET, NOT_INITIALIZED, INITIALIZING)
+        with tracing.span("features.extract"):
+            bank = dict(n_features=2 * ex.n_features, fast_th=5.0) if init_bank else {}
+            return extract_features(images, self.rig.cams, ex, self._tables, **bank)
 
     def _level_quotas(self) -> np.ndarray:
         """Per-level slot budgets of the RUNTIME bank (kept by the init-bank
